@@ -2,18 +2,29 @@
 
     python3 chip_smoke.py [--seed N] [--profile]
 
-Builds the framing/OLA kernels from magphase_tpu_torch/csrc, checks each
-against its plain torch version at the shapes the main path gives it, then
-drives the port's main path: the lossless analysis/synthesis round trip on
-synthetic voiced/unvoiced signals (kernels K1 + K2), the anti-ringing
-overlap-add entry ola_centered_batch(ar_shifts=) (kernel K3) against the
-two-pass form, and three serving requests of batched compressed synthesis
-(1, 8 and 128 utterances of ~3 s at 48 kHz, 60/45 feature dims; kernel
-K2).  ``--profile`` adds a torch.profiler pass over one warm 128-utterance
-request: the host halves' times, device time by kernel and the device's
-idle share.  Every phase raises on failure.  Prints one line per phase, then a
-JSON line with each kernel's launches, error and times, the card's name
-and power limit, and last {"ok": true, "device": {...}}.
+Builds the CUDA kernels from magphase_tpu_torch/csrc (framing.cu: K1-K3,
+walk.cu: K4; one nvcc per source, started together), checks each against
+its plain torch version at the shapes its path gives it, then drives the
+port's two paths, each with the launch counts set to 0 just before it and
+read just after:
+
+- serving: the lossless analysis/synthesis round trip on synthetic
+  voiced/unvoiced signals (K1 + K2), the anti-ringing overlap-add entry
+  ola_centered_batch(ar_shifts=) (K3) against the two-pass form, and three
+  requests of batched compressed synthesis (1, 8 and 128 utterances of
+  ~3 s at 48 kHz, 60/45 feature dims; K2);
+- wav-in compressed analysis: analysis_compressed_batch requests of 8 and
+  192 utterances of 3 s at 48 kHz (fft_len 4096, 60/45 dims, tracked
+  epochs; K4 in phase 1, K1 in phase 2), after a tracked lossless witness
+  (tracker + K4 marks -> K1 -> K2), with the card against the CPU on the
+  8-utterance request.
+
+``--profile`` adds a torch.profiler pass over one warm 128-utterance
+serving request and one warm 192-utterance analysis request: the host
+halves' times, device time by kernel and the device's idle share.  Every
+phase raises on failure.  Prints one line per phase, then a JSON line
+with each kernel's launches, error, times and bound, the card's name and
+power limit, and last {"ok": true, "device": {...}}.
 
 Needs a CUDA card: exits non-zero without one, and never falls back to
 the CPU.  Imports nothing of JAX.
@@ -35,10 +46,19 @@ FS = 48000
 MAG_DIM, PHASE_DIM = 60, 45
 UTT_SECONDS = 3.0
 REQUEST_SIZES = (1, 8, 128)
-SRC = "magphase_tpu_torch/csrc/framing.cu"
-PALLAS = "magphase_tpu/pallas_kernels/framing_pallas.py"
-REPLACES = {"frames": f"{PALLAS}:56", "ola": f"{PALLAS}:241",
-            "ola_anti_ring": f"{PALLAS}:246"}
+ANALYSIS_SIZES = (8, 192)
+ANALYSIS_DISTINCT = 32      # distinct signals, cycled as bench.py:327 does
+CSRC = "magphase_tpu_torch/csrc"
+PALLAS = "magphase_tpu/pallas_kernels"
+SOURCES = {"frames": f"{CSRC}/framing.cu", "ola": f"{CSRC}/framing.cu",
+           "ola_anti_ring": f"{CSRC}/framing.cu", "walk": f"{CSRC}/walk.cu"}
+REPLACES = {"frames": f"{PALLAS}/framing_pallas.py:56",
+            "ola": f"{PALLAS}/framing_pallas.py:241",
+            "ola_anti_ring": f"{PALLAS}/framing_pallas.py:246",
+            "walk": f"{PALLAS}/walk_pallas.py:51"}
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense float32, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 # K1 and K3 may differ from their plain versions by float32 round-off
 # (both are written to round every operation as the plain version does,
 # but the window's cosf is the only libm call); K2 must be bitwise equal.
@@ -52,8 +72,20 @@ TOL_LOSSLESS_P99 = 2.0 ** -15
 # card adds cuFFT's and cuBLAS's own rounding at 4x longer FFTs, so the
 # bound is ten times the CPU-measured difference.
 TOL_CUDA_VS_CPU = 2e-5
+# analysis, CUDA vs CPU on the 8-utterance request, on frames whose marks
+# agree: the CPU tests measure the port's phase 2 against the JAX package
+# at up to 8.0e-5 absolute on the mel streams (the phase coefficients of
+# weak frames) and 1.1e-7 relative on lf0, on a witness signal of this
+# script at fft_len 4096 (tests/test_torch_analysis.py::
+# test_phase2_layer_matches_jax_native_rfft); the bounds are ten times
+# those.  The marks themselves may move where the card's round-off shifts
+# a trough: at most 0.5% of them, by at most one sample.
+TOL_ANALYSIS_STREAMS = 8e-4
+TOL_ANALYSIS_LF0_REL = 1.1e-6
+MAX_MARK_DIFF_SHARE = 0.005
 # warm runs per request size; the median and the spread are reported
 WARM_RUNS = 10
+WARM_RUNS_ANALYSIS = 5
 
 
 def log(msg: str) -> None:
@@ -192,38 +224,20 @@ def _busy_us(intervals, lo: float, hi: float) -> float:
     return busy
 
 
-def profile_request(feats, keys, dev, reps: int = 5) -> None:
-    """Where the time of one warm 128-utterance request goes: the host
-    halves timed alone (median of ``reps``), then one request under
-    torch.profiler — device time by kernel, and the device's idle share: the
-    part of the request's span in which no kernel, copy or memset ran."""
+def profile_call(label: str, fn) -> None:
+    """One warm call of fn under torch.profiler: its wall time, the
+    device's busy time and idle share over the call's span (the part in
+    which no kernel, copy or memset ran), and device time by kernel."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    from magphase_tpu_torch.parallel import batch
-    geo, prep = [], []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _, max_b = batch._synthesis_geometry(feats, FS, 4096, False)
-        t1 = time.perf_counter()
-        batch._prepare_synthesis_group(feats, n_real=len(feats), keys=keys,
-                                       max_b=max_b, fs=FS, mag_dim=MAG_DIM,
-                                       phase_dim=PHASE_DIM)
-        geo.append(t1 - t0)
-        prep.append(time.perf_counter() - t1)
-    log(f"[profile] host, median of {reps}: _synthesis_geometry "
-        f"{np.median(geo) * 1000:.3f} ms, _prepare_synthesis_group "
-        f"{np.median(prep) * 1000:.3f} ms")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("request"):
             t0 = time.perf_counter()
-            batch.synthesis_from_compressed_batch(
-                feats, FS, pf_type="magphase", keys=keys, device=dev,
-                block_result=False)
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -240,9 +254,9 @@ def profile_request(feats, keys, dev, reps: int = 5) -> None:
                              f"{len(dev_ev)} device events in the trace")
     lo, hi = req[0]["ts"], req[0]["ts"] + req[0]["dur"]
     busy = _busy_us(dev_ev, lo, hi)
-    log(f"[profile] request of {len(feats)} utts under the profiler: wall "
-        f"{wall * 1000:.1f} ms, span {(hi - lo) / 1000:.3f} ms, device busy "
-        f"{busy / 1000:.3f} ms, idle share {1 - busy / (hi - lo):.4f}")
+    log(f"[profile] {label} under the profiler: wall {wall * 1000:.1f} ms, "
+        f"span {(hi - lo) / 1000:.3f} ms, device busy {busy / 1000:.3f} ms, "
+        f"idle share {1 - busy / (hi - lo):.4f}")
 
     # device time by kernel, from the trace's device events alone (the
     # profiler's per-op table would count a kernel under its op as well)
@@ -253,9 +267,50 @@ def profile_request(feats, keys, dev, reps: int = 5) -> None:
                  else e["name"])
             by_kernel[k] = by_kernel.get(k, 0.0) + e["dur"]
     top = sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)
-    log(f"[profile] device time {sum(by_kernel.values()) / 1000:.3f} ms in "
-        f"{len(dev_ev)} device events; by kernel (ms): "
+    log(f"[profile] {label}: device time {sum(by_kernel.values()) / 1000:.3f}"
+        f" ms in {len(dev_ev)} device events; by kernel (ms): "
         + ", ".join(f"{k} {us / 1000:.3f}" for k, us in top[:16]))
+
+
+def profile_request(feats, keys, dev, reps: int = 5) -> None:
+    """Where the time of one warm 128-utterance serving request goes: the
+    host halves timed alone (median of ``reps``), then the request under
+    torch.profiler (profile_call)."""
+    from magphase_tpu_torch.parallel import batch
+    geo, prep = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _, max_b = batch._synthesis_geometry(feats, FS, 4096, False)
+        t1 = time.perf_counter()
+        batch._prepare_synthesis_group(feats, n_real=len(feats), keys=keys,
+                                       max_b=max_b, fs=FS, mag_dim=MAG_DIM,
+                                       phase_dim=PHASE_DIM)
+        geo.append(t1 - t0)
+        prep.append(time.perf_counter() - t1)
+    log(f"[profile] host, median of {reps}: _synthesis_geometry "
+        f"{np.median(geo) * 1000:.3f} ms, _prepare_synthesis_group "
+        f"{np.median(prep) * 1000:.3f} ms")
+    profile_call(f"serving request of {len(feats)} utts",
+                 lambda: batch.synthesis_from_compressed_batch(
+                     feats, FS, pf_type="magphase", keys=keys, device=dev,
+                     block_result=False))
+
+
+def profile_analysis(a_sigs, dev, reps: int = 5) -> None:
+    """Where the time of one warm 192-utterance analysis request goes: the
+    host packing of one group timed alone (median of ``reps``), then the
+    request under torch.profiler (profile_call)."""
+    from magphase_tpu_torch.parallel import analysis_batch as ab
+    req = [a_sigs[i % len(a_sigs)] for i in range(max(ANALYSIS_SIZES))]
+    prep = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ab._host_signal_batch(a_sigs, FS, 4096)
+        prep.append(time.perf_counter() - t0)
+    log(f"[profile] host, median of {reps}: _host_signal_batch of one group "
+        f"of {len(a_sigs)} {np.median(prep) * 1000:.3f} ms")
+    profile_call(f"analysis request of {len(req)} utts",
+                 lambda: ab.analysis_compressed_batch(req, FS, device=dev))
 
 
 def _kernel_label(name: str) -> str:
@@ -272,18 +327,263 @@ def _kernel_label(name: str) -> str:
     return m.group(1).rsplit("::", 1)[-1] if m else name
 
 
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work, the larger
+# of bytes over the memory rate and float32 operations over the peak rate
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def walk_work(f0, n_sigs, n_frames, marks, flags, n_marks, fs: int,
+              frame_step: float):
+    """What this run's walk needed: (window samples read, steps), from its
+    marks.  Each written mark i starts at t = the previous mark (0 for the
+    first); a voiced step reads y_snap over [lo, hi) of the two-phase
+    window around t + period, an unvoiced step reads nothing of it.  The
+    final step that ends each walk is counted as a step without a read."""
+    from magphase_tpu_torch.kernels.walk import walk_constants
+    c = walk_constants(fs, frame_step)
+    f0 = f0.cpu().numpy()
+    marks, flags = marks.cpu().numpy(), flags.cpu().numpy()
+    n_marks, n_sigs = n_marks.cpu().numpy(), n_sigs.cpu().numpy()
+    n_frames = n_frames.cpu().numpy()
+    samples, steps = 0, 0
+    for b in range(len(n_marks)):
+        n = int(n_marks[b])
+        steps += n + 1
+        if n == 0:
+            continue
+        t = np.concatenate([[0], marks[b, :n - 1]]).astype(np.int64)
+        voi = flags[b, :n] > 0
+        fr = np.clip((t / float(c["frame_step"])).astype(np.int64), 0,
+                     max(int(n_frames[b]) - 1, 0))
+        period = np.minimum(fs / np.maximum(f0[b, fr], 1.0), c["p_max"])
+        run = np.zeros(n, np.int64)             # voiced marks before i in
+        for i in range(1, n):                   # the current run
+            run[i] = run[i - 1] + 1 if voi[i - 1] else 0
+        wide = run < c["onset_marks"]
+        lo = t + np.floor(np.where(wide, c["lo_wide"], c["lo_run"])
+                          * period).astype(np.int64)
+        hi = np.minimum(int(n_sigs[b]) - 1, t + np.floor(
+            np.where(wide, c["hi_wide"], c["hi_run"]) * period).astype(
+                np.int64))
+        samples += int(np.sum(np.where(voi, np.maximum(hi - lo, 0), 0)))
+    return samples, steps
+
+
+def period_errors(marks, flags, n_marks, true_marks, true_vois):
+    """Relative error of each tracked voiced period (two consecutive voiced
+    marks) against the witness's true period at the same place."""
+    errs = []
+    marks, flags, n_marks = (x.cpu().numpy() for x in (marks, flags,
+                                                       n_marks))
+    for b in range(len(true_marks)):
+        m = marks[b, :int(n_marks[b])].astype(np.int64)
+        v = flags[b, :int(n_marks[b])] > 0
+        pm, pv = np.asarray(true_marks[b]), np.asarray(true_vois[b]) > 0
+        both = v[:-1] & v[1:]
+        j = np.searchsorted(pm, m[:-1], side="right") - 1
+        ok = both & (j >= 0) & (j < len(pm) - 1)
+        j = np.clip(j, 0, len(pm) - 2)
+        ok &= pv[j] & pv[j + 1]
+        true_p = (pm[j + 1] - pm[j]).astype(np.float64)
+        errs.append(np.abs(np.diff(m) - true_p)[ok] / true_p[ok])
+    return np.concatenate(errs)
+
+
+def agreeing_frames(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Frames f whose marks agree at f-2 .. f+2 (every input of frame f's
+    streams and of its median-smoothed lf0)."""
+    eq = a == b
+    pad = np.concatenate([[True, True], eq, [True, True]])
+    return np.all([pad[k:k + len(eq)] for k in range(5)], axis=0)
+
+
+def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
+                      S) -> dict:
+    """Path 2, wav-in compressed analysis: the tracked lossless witness,
+    then the analysis requests with the launch counts from 0 (returned),
+    warm timings, the phase split on one group, and the card against the
+    CPU on the 8-utterance request."""
+    from magphase_tpu_torch.epochs import placement_device as pd
+    from magphase_tpu_torch.epochs import tracker
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    from magphase_tpu_torch.parallel import analysis_batch as ab
+    from magphase_tpu_torch.utils.padding import bucket_frames
+    from magphase_tpu_torch.vocoder import lossless
+    from magphase_tpu_torch.vocoder.compressed import (
+        get_num_full_mel_coeffs_from_num_phase_coeffs)
+    t_sig, t_nsig, t_nfrm = group
+
+    # tracked lossless witness: the tracker's marks -> K1 -> K2
+    marks, flags, n_marks = pd.track_and_place_batch(
+        t_sig, t_nsig, t_nfrm, fs=FS, n_frames_max=Tmax, m_max=m_max)
+    errs = period_errors(marks, flags, n_marks, a_marks, a_vois)
+    log(f"[analysis] tracked marks of {len(a_sigs)} witness signals: "
+        f"{int(n_marks.sum())} marks; voiced period error vs the exact "
+        f"marks: median {np.median(errs):.4g}, p95 "
+        f"{np.percentile(errs, 95):.4g}, share > 20% {np.mean(errs > 0.2):.4g}"
+        f" over {len(errs)} periods")
+    F = min(m_max, bucket_frames(int(n_marks.max())))
+    mag, real, imag, _f0, _sh = lossless.analysis_core_batch(
+        t_sig, marks[:, :F], n_marks, t_nsig, flags[:, :F], fft_len=4096,
+        fs=FS)
+    out = lossless.synthesis_core_batch(mag, real, imag, marks[:, :F],
+                                        n_marks, fft_len=4096, out_len_max=S)
+    out = out.cpu().numpy()
+    del mag, real, imag
+    p99s = []
+    for b, sig in enumerate(a_sigs):
+        n = len(sig)
+        syn = out[b, :n]
+        if not np.all(np.isfinite(syn)):
+            raise AssertionError(f"tracked lossless utt {b}: non-finite")
+        p99 = float(np.percentile(np.abs(syn[2000:n - 2000]
+                                         - sig[2000:n - 2000]), 99))
+        if not p99 < TOL_LOSSLESS_P99:
+            raise AssertionError(f"tracked lossless utt {b}: p99 {p99:.3g}")
+        p99s.append(p99)
+    log(f"[analysis] tracked lossless witness, {len(a_sigs)} x "
+        f"{UTT_SECONDS} s: worst p99 |syn - sig| {max(p99s):.3g} (< 2^-15)")
+
+    # the analysis requests: counts from 0 just before, read just after
+    K.reset_launch_counts()
+    K4.reset_launch_counts()
+    fallbacks = ab.capacity_fallbacks
+    audio = {}
+    for n in ANALYSIS_SIZES:
+        req = [a_sigs[i % len(a_sigs)] for i in range(n)]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ab.analysis_compressed_batch(req, FS, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for i, (mml, mrm, mim, lf0, shift) in enumerate(res):
+            nf = len(shift)
+            if not (nf > 0 and mml.shape == (nf, MAG_DIM)
+                    and mrm.shape == mim.shape == (nf, PHASE_DIM)
+                    and lf0.shape == (nf,)):
+                raise AssertionError(f"analysis request {n}, utt {i}: shapes "
+                                     f"{mml.shape} {mrm.shape} {lf0.shape}")
+            if not all(np.all(np.isfinite(x)) for x in (mml, mrm, mim, lf0)):
+                raise AssertionError(f"analysis request {n}, utt {i}: "
+                                     "non-finite features")
+        audio[n] = sum(len(x) for x in req) / FS
+        log(f"[analysis] request of {n} utts ({audio[n]:.1f} audio-s): "
+            f"{dt * 1000:.1f} ms wall, {audio[n] / dt:.1f} audio-s/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (first "
+            "call)")
+    counts = {**K.launch_counts(), **K4.launch_counts()}
+    log(f"[analysis] launches during the analysis path: {counts}; capacity "
+        f"fallbacks {ab.capacity_fallbacks - fallbacks}")
+    for name in ("frames", "walk"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "analysis path")
+    if ab.capacity_fallbacks != fallbacks:
+        raise AssertionError("the device walk hit its capacity on the "
+                             "analysis path")
+
+    for n in ANALYSIS_SIZES:
+        req = [a_sigs[i % len(a_sigs)] for i in range(n)]
+        walls = []
+        for _ in range(WARM_RUNS_ANALYSIS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ab.analysis_compressed_batch(req, FS, device=dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        log(f"[analysis] warm request of {n} utts, {WARM_RUNS_ANALYSIS} runs: "
+            f"median {med * 1000:.1f} ms (min {min(walls) * 1000:.1f}, max "
+            f"{max(walls) * 1000:.1f}), {audio[n] / med:.1f} audio-s/s at the "
+            "median (features on the host)")
+
+    # the two phases of one 32-utterance group, and the Viterbi loop inside
+    # phase 1, timed by CUDA events on the stream
+    alpha = 0.77
+    ckw = dict(mag_dim=MAG_DIM, phase_dim=PHASE_DIM, alpha=alpha,
+               alpha_phase=alpha,
+               mag_dim_ph=get_num_full_mel_coeffs_from_num_phase_coeffs(
+                   5000.0, PHASE_DIM, alpha, FS))
+    p1 = cuda_ms(lambda: ab._track_place_impl(
+        t_sig, t_nsig, t_nfrm, fs=FS, n_frames_max=Tmax, m_max=m_max),
+        reps=3, warmup=1)
+    p2 = cuda_ms(lambda: ab._analyze_compress_impl(
+        t_sig, marks, flags, n_marks, t_nsig, fs=FS, fft_len=4096, F=F,
+        feats_f16=True, **ckw), reps=3, warmup=1)
+    fs_a = tracker.analysis_rate(FS)[0]
+    xa, _ = tracker._preprocess(t_sig, fs=FS)
+    nccf, valid = tracker._nccf(xa, t_nfrm, n_frames_max=Tmax, fs_a=fs_a)
+    vals, lags = tracker._candidates(nccf)
+    vit = cuda_ms(lambda: tracker._viterbi(vals, lags, valid, fs_a=fs_a),
+                  reps=3, warmup=1)
+    log(f"[analysis] one group of {len(a_sigs)} utts on the stream: phase 1 "
+        f"(track + K4) {p1:.3f} ms, of which the Viterbi loop {vit:.3f} ms "
+        f"({vit / p1:.3f}); phase 2 (K1 + rfft + mel compression, F={F}) "
+        f"{p2:.3f} ms")
+
+    # the card against the CPU on the 8-utterance request, float32 output
+    req = a_sigs[:8]
+    t0 = time.perf_counter()
+    cpu = ab.analysis_compressed_batch(req, FS, feat_dtype=np.float32,
+                                       device="cpu")
+    dt_cpu = time.perf_counter() - t0
+    gpu = ab.analysis_compressed_batch(req, FS, feat_dtype=np.float32,
+                                       device=dev)
+    n_diff, n_all, s_err, l_err = 0, 0, 0.0, 0.0
+    for i, (g, c) in enumerate(zip(gpu, cpu)):
+        if len(g[4]) != len(c[4]):
+            raise AssertionError(f"CUDA vs CPU, utt {i}: {len(g[4])} marks "
+                                 f"against {len(c[4])}")
+        pm_g, pm_c = np.cumsum(g[4]), np.cumsum(c[4])
+        d = np.abs(pm_g - pm_c)
+        if d.max() > 1:
+            raise AssertionError(f"CUDA vs CPU, utt {i}: a mark moved by "
+                                 f"{d.max()} samples")
+        n_diff += int(np.sum(d > 0))
+        n_all += len(d)
+        ok = agreeing_frames(pm_g, pm_c)
+        s_err = max([s_err] + [float(np.abs(g[k][ok] - c[k][ok]).max())
+                               for k in range(3)])
+        l_err = max(l_err, float(np.max(np.abs(g[3][ok] - c[3][ok])
+                                        / np.abs(c[3][ok]))))
+    log(f"[analysis] CUDA vs CPU, 8 utts: {n_diff} of {n_all} marks differ "
+        f"(by 1 sample; bound {MAX_MARK_DIFF_SHARE} of them); on agreeing "
+        f"frames max |diff| {s_err:.3g} on the mel streams (bound "
+        f"{TOL_ANALYSIS_STREAMS}), {l_err:.3g} relative on lf0 (bound "
+        f"{TOL_ANALYSIS_LF0_REL}); CPU took {dt_cpu * 1000:.1f} ms")
+    if n_diff > MAX_MARK_DIFF_SHARE * n_all:
+        raise AssertionError(f"CUDA vs CPU: {n_diff} of {n_all} marks differ")
+    if not (s_err <= TOL_ANALYSIS_STREAMS and l_err <= TOL_ANALYSIS_LF0_REL):
+        raise AssertionError("CUDA vs CPU analysis features out of bounds")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one warm 128-utterance request")
+                    help="profile one warm 128-utterance serving request "
+                    "and one warm 192-utterance analysis request")
     args = ap.parse_args()
 
     # phase 1 — environment
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke run needs a CUDA card and does not run on the CPU")
+    from magphase_tpu_torch.kernels import _build
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -292,19 +592,24 @@ def main() -> None:
     smi = nvidia_smi()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} count {torch.cuda.device_count()} "
-        f"nvcc {K.find_nvcc()}")
+        f"nvcc {_build.find_nvcc()}")
     log(f"[env] nvidia-smi: {smi}")
     log(f"[env] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
-    # phase 2 — build
-    info = K.build()
-    ptx = [ln.strip() for ln in info["log"].splitlines()
-           if "registers" in ln or "spill" in ln]
-    log(f"[build] {info['path']} in {info['seconds']:.2f} s "
-        f"(cached={info['cached']}); ptxas: {' | '.join(ptx)}")
+    # phase 2 — build, one nvcc per source, started together
+    t0 = time.perf_counter()
+    infos = _build.build(K.SOURCE, K4.SOURCE)
+    for name, info in infos.items():
+        ptx = [ln.strip() for ln in info["log"].splitlines()
+               if "registers" in ln or "spill" in ln]
+        log(f"[build] {name}: {info['path']} in {info['seconds']:.2f} s "
+            f"(cached={info['cached']}); ptxas: {' | '.join(ptx)}")
+    log(f"[build] both sources in {time.perf_counter() - t0:.2f} s wall")
 
     from magphase_tpu_torch.core import framing
+    from magphase_tpu_torch.epochs import placement_device as pd
+    from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.parallel import batch
     from magphase_tpu_torch.utils.padding import (FRM_STEP, bucket,
                                                   bucket_signal)
@@ -315,6 +620,8 @@ def main() -> None:
     n_max = max(REQUEST_SIZES)
     feats = [make_features(rng, UTT_SECONDS) for _ in range(n_max)]
     keys_all = rng.integers(0, 2 ** 32, (n_max, 2), dtype=np.uint32)
+    a_sigs, a_marks, a_vois = make_witness_signals(rng, ANALYSIS_DISTINCT,
+                                                   UTT_SECONDS)
     results = {}
 
     # phase 3 — each kernel against its plain version at main-path shapes
@@ -346,12 +653,19 @@ def main() -> None:
     if not err <= TOL_FRAMES:
         raise AssertionError(f"K1 frames: max |kernel - plain| {err:.3g} > "
                              f"{TOL_FRAMES}")
+    # bytes: every input once, the (B, F, N) output once; operations: the
+    # window (a division, a compare, cos or sqrt and a scale) and the
+    # multiply, 5 per output element
+    bnd = bound(nbytes(*k1_args, got), 5 * got.numel())
     results["frames"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: K.frames(*k1_args, **k1_kw)),
-        plain_ms=cuda_ms(lambda: K.frames_plain(*k1_args, **k1_kw), reps=3))
+        plain_ms=cuda_ms(lambda: K.frames_plain(*k1_args, **k1_kw), reps=3),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
     log(f"[kernels] K1 frames B={B} F={F} N=4096 S={S}: max_abs_err {err:.3g} "
         f"kernel {results['frames']['ms']:.4f} ms plain "
-        f"{results['frames']['plain_ms']:.4f} ms")
+        f"{results['frames']['plain_ms']:.4f} ms bound "
+        f"{results['frames']['bound_ms']:.4f} ms "
+        f"({results['frames']['bound_by']})")
     del got, ref
 
     # K2/K3 at the geometry of the 128-utterance serving request
@@ -378,11 +692,32 @@ def main() -> None:
     if not torch.equal(got, ref):
         raise AssertionError("K2 ola: kernel is not bitwise equal to plain "
                              f"(max diff {k2_err:.3g})")
+    # the one torch call that computes the same sums (in another order):
+    # scatter_add_ over flattened indices, invalid samples to a spare slot
+    p_ = torch.arange(fft_syn, device=dev)
+    o_idx = starts.to(torch.int64)[..., None] + p_
+    keep = (o_idx >= 0) & (o_idx < O) & (
+        torch.arange(Fs_, device=dev)[None, :, None] < s_nfrms[:, None, None])
+    flat = (torch.arange(Bs, device=dev)[:, None, None] * (O + 1)
+            + torch.where(keep, o_idx, O)).reshape(-1)
+    frm_flat = frm.reshape(-1)
+    del p_, o_idx, keep
+
+    def ola_library():
+        out = torch.zeros(Bs * (O + 1), device=dev)
+        return out.scatter_add_(0, flat, frm_flat)
+
+    # bytes: frames, starts and counts once, the (B, O) output once;
+    # operations: one add per frame element
+    bnd = bound(nbytes(frm, starts, s_nfrms, got), frm.numel())
     results["ola"] = dict(
         max_abs_err=k2_err,
         ms=cuda_ms(lambda: K.ola(frm, starts, s_nfrms, out_len=O)),
         plain_ms=cuda_ms(lambda: K.ola_plain(frm, starts, s_nfrms,
-                                             out_len=O), reps=3))
+                                             out_len=O), reps=3),
+        bound_ms=bnd[0], bound_by=bnd[1],
+        library_ms=cuda_ms(ola_library, reps=5))
+    del flat, frm_flat
     got = K.ola_anti_ring(frm, starts, s_nfrms, wl, wr, out_len=O)
     ref = K.ola_anti_ring_plain(frm, starts, s_nfrms, wl, wr, out_len=O)
     torch.cuda.synchronize()
@@ -390,17 +725,24 @@ def main() -> None:
     if not err <= TOL_OLA_AR:
         raise AssertionError(f"K3 ola_anti_ring: max |kernel - plain| "
                              f"{err:.3g} > {TOL_OLA_AR}")
+    # as K2, plus the window lengths read and the window per element (a
+    # division, a compare, cos, a scale and the multiply): 6 operations
+    bnd = bound(nbytes(frm, starts, s_nfrms, wl, wr, got), 6 * frm.numel())
     results["ola_anti_ring"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: K.ola_anti_ring(frm, starts, s_nfrms, wl, wr,
                                            out_len=O)),
         plain_ms=cuda_ms(lambda: K.ola_anti_ring_plain(
-            frm, starts, s_nfrms, wl, wr, out_len=O), reps=3))
+            frm, starts, s_nfrms, wl, wr, out_len=O), reps=3),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
     for name in ("ola", "ola_anti_ring"):
         r = results[name]
+        lib = ("" if r["library_ms"] is None
+               else f" scatter_add_ {r['library_ms']:.4f} ms")
         log(f"[kernels] {name} B={Bs} F={Fs_} N={fft_syn} O={O}: max_abs_err "
             f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
-            f"{r['plain_ms']:.4f} ms")
+            f"{r['plain_ms']:.4f} ms{lib} bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
     del got, ref
 
     # the anti-ringing window and the OLA as one pass (K3) or two (window,
@@ -418,8 +760,51 @@ def main() -> None:
         f"(K3) {cuda_ms(ola_ar_fused, reps=20):.4f} ms, two-pass (window + "
         f"K2) {cuda_ms(ola_ar_two_pass, reps=20):.4f} ms")
 
-    # the main path: counts from 0, lossless round trip + serving requests
+    # K4, the epoch walk, against its plain version on the walk inputs the
+    # port's tracker gives for the 32 distinct analysis signals
+    _, host_a, S_a, Tmax_a, m_max_a, _ = ab._host_signal_batch(
+        a_sigs, FS, 4096)
+    t_sig, t_nsig, t_nfrm = (torch.from_numpy(a).to(dev) for a in host_a)
+    y_snap, f0_t, voi_t = (x.contiguous() for x in pd._track_one(
+        t_sig, t_nfrm, fs=FS, n_frames_max=Tmax_a))
+    k4_args = (y_snap, f0_t, voi_t, t_nsig, t_nfrm)
+    fstep = pd._walk_frame_step(FS)
+    k4_kw = dict(fs=FS, m_max=m_max_a, frame_step=fstep,
+                 snap_w=pd._snap_win(FS))
+    got = K4.walk(*k4_args, **k4_kw)
+    ref = K4.walk_plain(*k4_args, **k4_kw)
+    torch.cuda.synchronize()
+    for g, r, what in zip(got, ref, ("marks", "flags", "n_marks")):
+        if not torch.equal(g, r):
+            raise AssertionError(f"K4 walk: {what} of the kernel differ from "
+                                 "the plain version")
+    k4_err = max(float((g.to(torch.float32) - r.to(torch.float32)).abs()
+                       .max()) for g, r in zip(got, ref))
+    samples, steps = walk_work(f0_t, t_nsig, t_nfrm, *got, fs=FS,
+                               frame_step=fstep)
+    n_max_marks = int(got[2].max())
+    # bytes: the window samples the voiced steps read, two track values and
+    # the counts per step, the outputs once; operations: a compare and a
+    # select per window sample
+    bnd = bound(4 * samples + 8 * steps + nbytes(t_nsig, t_nfrm, *got),
+                2 * samples)
+    results["walk"] = dict(
+        max_abs_err=k4_err, ms=cuda_ms(lambda: K4.walk(*k4_args, **k4_kw)),
+        plain_ms=cuda_ms(lambda: K4.walk_plain(*k4_args, **k4_kw), reps=2,
+                         warmup=1),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    r = results["walk"]
+    log(f"[kernels] K4 walk B={len(a_sigs)} S={S_a} T={Tmax_a} "
+        f"m_max={m_max_a} snap_w={pd._snap_win(FS)}: bitwise equal to plain; "
+        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+        f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {samples} window samples, "
+        f"{steps} steps); longest walk {n_max_marks} marks, "
+        f"{r['ms'] * 1e3 / n_max_marks:.3f} us per step of it")
+    del got, ref
+
+    # path 1, serving: counts from 0, lossless round trip + serving requests
     K.reset_launch_counts()
+    K4.reset_launch_counts()
 
     # phase 4 — lossless witness through K1 + K2
     torch.cuda.synchronize()
@@ -488,11 +873,11 @@ def main() -> None:
         if n == 8:
             wavs8 = wavs
     counts = K.launch_counts()
-    log(f"[serve] launches during the main path: {counts}")
+    log(f"[serve] launches during the serving path: {counts}")
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
+                                 "serving path")
 
     # the same 8-utterance request on the CPU (plain versions throughout)
     t0 = time.perf_counter()
@@ -526,13 +911,20 @@ def main() -> None:
             f"{max(walls) * 1000:.1f}), {audio_s / med:.1f} audio-s/s at the "
             "median (device buffers, no download)")
 
+    counts_a = run_analysis_path(dev, a_sigs, a_marks, a_vois,
+                                 (t_sig, t_nsig, t_nfrm), Tmax_a, m_max_a,
+                                 S_a)
+
     if args.profile:
         profile_request(feats, keys_all, dev)
+        profile_analysis(a_sigs, dev)
 
-    kernels = [dict(name=name, route="cuda", source=SRC,
-                    replaces=REPLACES[name], launches=counts[name],
+    launches = {**counts, "walk": counts_a["walk"]}
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
+                    replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"])
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,9 +3,11 @@
 Mirrors the JAX package's module paths (``core/framing.py`` here is the
 counterpart of ``magphase_tpu/core/framing.py``, and so on).  It imports
 torch, numpy and scipy only — never jax or magphase_tpu — so it runs on a
-machine that has neither.  The Pallas framing/OLA kernels of the JAX package
-are hand-written CUDA C++ here (``csrc/framing.cu``, bound in
-``kernels/framing.py``); everything else is plain torch (cuFFT, cuBLAS).
+machine that has neither.  The Pallas kernels of the JAX package on its
+paths are hand-written CUDA C++ here: framing/OLA in ``csrc/framing.cu``
+(bound in ``kernels/framing.py``) and the epoch walk in ``csrc/walk.cu``
+(``kernels/walk.py``); everything else is plain torch (cuFFT, cuBLAS).
+Public entry points run on the card unless called with ``device="cpu"``.
 """
 from .config import (DEFAULT_16K, DEFAULT_48K, MagPhaseConfig, define_alpha,
                      define_crossfade_params, define_fft_len, from_jax_config)

@@ -1,11 +1,23 @@
-"""Output high-pass in its spectral form (port of the default-path subset
-of magphase_tpu/core/filters.py).  Filter design is host scipy float64."""
+"""The 3-point median filter and the output high-pass in its spectral form
+(port of the default-path subset of magphase_tpu/core/filters.py).  Filter
+design is host scipy float64."""
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 from scipy import signal as sp_signal
+
+
+def medfilt3(v: torch.Tensor) -> torch.Tensor:
+    """scipy.signal.medfilt(v) with kernel_size=3 (zero padding) along the
+    last axis, as a min/max network."""
+    zero = torch.zeros_like(v[..., :1])
+    a = torch.cat([zero, v[..., :-1]], dim=-1)
+    c = torch.cat([v[..., 1:], zero], dim=-1)
+    return torch.maximum(torch.minimum(a, v),
+                         torch.minimum(torch.maximum(a, v), c))
 
 
 @functools.lru_cache(maxsize=16)

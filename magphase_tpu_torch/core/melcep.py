@@ -1,5 +1,5 @@
-"""Mel-cepstral transforms used at synthesis (port of the synthesis subset
-of magphase_tpu/core/melcep.py).
+"""Mel-cepstral transforms: the forward mel warp of compressed analysis and
+the unwarp of synthesis (port of magphase_tpu/core/melcep.py).
 
 The SPTK tools the reference shells out to are linear maps here: host
 float64 matrices built once per (size, alpha), applied as float32 matmuls.
@@ -81,6 +81,65 @@ def mcep_to_sp_cosmat(m_mcep: torch.Tensor, n_spbins: int,
     if out_type == "log":
         return m_sp
     raise ValueError(out_type)
+
+
+@functools.lru_cache(maxsize=32)
+def mcep_matrix_np(f2: int, fft_len: int, n_coeffs: int,
+                   alpha: float) -> np.ndarray:
+    """(f2+1, n_coeffs) float32 matrix M with mcep = log_periodogram @ M.
+
+    SPTK ``mcep -j 0`` (zero Newton iterations, libaudio.py:575-601) is its
+    initial estimate: freqt of the one-sided cepstrum of the log
+    periodogram.  Everything after the log is linear, so the cepstrum
+    (hermitian fold weights times cosines), the halving at t in {0, f2} and
+    the freqt matrix compose in float64 into one matrix."""
+    k = np.arange(f2 + 1, dtype=np.float64)
+    t = np.arange(f2 + 1, dtype=np.float64)
+    w = np.full(f2 + 1, 2.0 / fft_len)
+    w[0] = 1.0 / fft_len
+    if 2 * f2 == fft_len:
+        w[f2] = 1.0 / fft_len
+    A = w[:, None] * np.cos(2.0 * np.pi * np.outer(k, t) / fft_len)
+    A[:, 0] *= 0.5                      # one-sided cepstrum halving
+    A[:, f2] *= 0.5
+    F = freqt_matrix_np(f2, n_coeffs - 1, alpha)
+    return (A @ F).astype(np.float32)
+
+
+def sp_to_mcep(m_sp: torch.Tensor, n_coeffs: int = 60, alpha: float = 0.77,
+               in_type: int = 3, fft_len: int = 0,
+               eps: float = 1.0e-8) -> torch.Tensor:
+    """Spectrum -> mel-cepstrum with the semantics of ``mcep -a alpha
+    -m n_coeffs-1 -l fft_len -e 1e-8 -j 0 -f 0.0 -q in_type``
+    (libaudio.py:575-601), as one matmul of the log periodogram.
+
+    in_type: 3 => |f(w)|, 1 => 20log10|f(w)|, 2 => ln|f(w)|.
+    m_sp: (rows, fft_len/2+1) non-redundant spectrum."""
+    f2 = m_sp.shape[-1] - 1
+    if fft_len == 0:
+        fft_len = 2 * f2
+    if in_type == 3:
+        amp2 = m_sp * m_sp
+    elif in_type == 1:
+        amp = torch.pow(10.0, m_sp / 20.0)
+        amp2 = amp * amp
+    elif in_type == 2:
+        amp = torch.exp(m_sp)
+        amp2 = amp * amp
+    else:
+        raise ValueError(f"in_type {in_type} not supported")
+    P = torch.log(amp2 + eps)                        # log periodogram
+    return mm(P, _const(mcep_matrix_np(f2, fft_len, n_coeffs, alpha), P))
+
+
+def sp_mel_warp(m_sp: torch.Tensor, nbins_out: int, alpha: float = 0.77,
+                in_type: int = 3) -> torch.Tensor:
+    """Compression: spectrum -> mcep(alpha) -> sampled on the uniform
+    warped grid (libaudio.py:643-661)."""
+    m_mcep = sp_to_mcep(m_sp, n_coeffs=nbins_out, alpha=alpha,
+                        in_type=in_type)
+    out_type = {3: "abs", 1: "db", 2: "log"}[in_type]
+    return mcep_to_sp_cosmat(m_mcep, nbins_out, alpha=0.0, out_type=out_type)
 
 
 def sp_mel_unwarp(m_sp_mel: torch.Tensor, nbins_out: int,

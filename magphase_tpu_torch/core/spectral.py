@@ -1,5 +1,6 @@
-"""Spectral-domain primitives (port of the synthesis subset of
-magphase_tpu/core/spectral.py), batched over the leading axes."""
+"""Spectral-domain primitives (port of the subset of
+magphase_tpu/core/spectral.py that synthesis and compressed analysis use),
+batched over the leading axes."""
 from __future__ import annotations
 
 import functools
@@ -14,6 +15,12 @@ def protected_log(m_x: torch.Tensor) -> torch.Tensor:
     """Protected log: inf/nan -> MAGIC (libaudio.py:241-248)."""
     m_y = torch.log(m_x)
     return torch.where(torch.isfinite(m_y), m_y, MAGIC)
+
+
+def f0_to_lf0(v_f0: torch.Tensor) -> torch.Tensor:
+    """log with MAGIC floor at f0 <= 0 (libaudio.py:458-465)."""
+    pos = v_f0 > 0
+    return torch.where(pos, torch.log(torch.where(pos, v_f0, 1.0)), MAGIC)
 
 
 def db(m_data, b_inv: bool = False):

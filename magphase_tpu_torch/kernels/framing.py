@@ -22,28 +22,20 @@ or load included).  There is no fallback and no switch.  Each wrapper
 counts its kernel launches in a plain integer (``launch_counts``).
 
 The kernels are built with nvcc for sm_90a into ``build/torch_kernels/``
-at first use (``build``) and loaded with ctypes.
+at first use and loaded with ctypes (kernels/_build.py).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from ..core.windows import (anti_ring_window, asym_win_value,
                             asym_win_value_select)
+from . import _build
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "framing.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "framing.cu"
 
 
 # ---------------------------------------------------------------------------
@@ -102,95 +94,17 @@ def ola_anti_ring_plain(frames, starts, nfrms, wl, wr, *,
 
 
 # ---------------------------------------------------------------------------
-# build and load
-
-def find_nvcc() -> str:
-    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-             "/usr/local/cuda"]
-    cands = [shutil.which("nvcc")] + [os.path.join(h, "bin", "nvcc")
-                                      for h in homes if h]
-    for c in cands:
-        if c and os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
-                       "the framing kernels cannot be built")
-
-
-def _library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libmp_framing_{h.hexdigest()[:16]}.so"
-
-
-def build() -> dict:
-    """Compile csrc/framing.cu with nvcc unless a library built from the
-    same source and flags exists.  Returns {path, seconds, log, cached};
-    ``log`` holds the compiler's output (ptxas register/spill report)."""
-    path = _library_path()
-    log_path = path.with_suffix(".log")
-    if path.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return dict(path=str(path), seconds=0.0, log=log, cached=True)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, path)
-    return dict(path=str(path), seconds=seconds, log=log, cached=False)
-
+# load
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+    lib = _build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mp_frames.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
     lib.mp_frames.restype = i32
     lib.mp_ola.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
     lib.mp_ola.restype = i32
-    lib.mp_error_string.argtypes = [i32]
-    lib.mp_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _check_int_range(**dims) -> None:
-    for k, v in dims.items():
-        if not 0 <= v < 2 ** 31:
-            raise ValueError(f"{k}={v} out of the kernels' int32 range")
-
-
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc}: "
-                           f"{lib.mp_error_string(rc).decode()}")
-
-
-def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: tensors on {t.device}; the plain version "
-                         "runs on the CPU and the kernel on CUDA only")
 
 
 # ---------------------------------------------------------------------------
@@ -207,21 +121,22 @@ def frames(sig, pm, L, R, voi, nfrms, n_sig, *, fft_len: int,
     if sig.device.type == "cpu":
         return frames_plain(sig, pm, L, R, voi, nfrms, n_sig, fft_len=fft_len,
                             fam_voiced=fam_voiced, fam_unvoiced=fam_unvoiced)
-    _require_cuda(sig, "frames")
+    _build.require_cuda(sig, "frames")
     dev = sig.device
     B, S = sig.shape
     F = pm.shape[1]
-    _check_int_range(B=B, F=F, S=S, N=fft_len)
-    _check(sig, "sig", torch.float32, (B, S), dev)
+    _build.check_int_range(B=B, F=F, S=S, N=fft_len)
+    _build.check(sig, "sig", torch.float32, (B, S), dev)
     for name, t in (("pm", pm), ("L", L), ("R", R)):
-        _check(t, name, torch.int32, (B, F), dev)
-    _check(voi, "voi", torch.float32, (B, F), dev)
-    _check(nfrms, "nfrms", torch.int32, (B,), dev)
-    _check(n_sig, "n_sig", torch.int32, (B,), dev)
+        _build.check(t, name, torch.int32, (B, F), dev)
+    _build.check(voi, "voi", torch.float32, (B, F), dev)
+    _build.check(nfrms, "nfrms", torch.int32, (B,), dev)
+    _build.check(n_sig, "n_sig", torch.int32, (B,), dev)
     out = torch.empty(B, F, fft_len, dtype=torch.float32, device=dev)
-    _launch("mp_frames", dev, sig.data_ptr(), pm.data_ptr(), L.data_ptr(),
-            R.data_ptr(), voi.data_ptr(), nfrms.data_ptr(), n_sig.data_ptr(),
-            out.data_ptr(), B, F, S, fft_len, fam_voiced, fam_unvoiced)
+    _build.launch(_library(), "mp_frames", dev, sig.data_ptr(),
+                  pm.data_ptr(), L.data_ptr(), R.data_ptr(), voi.data_ptr(),
+                  nfrms.data_ptr(), n_sig.data_ptr(), out.data_ptr(), B, F,
+                  S, fft_len, fam_voiced, fam_unvoiced)
     frames.launches += 1
     return out
 
@@ -229,10 +144,10 @@ def frames(sig, pm, L, R, voi, nfrms, n_sig, *, fft_len: int,
 def _ola_checks(frames_, starts, nfrms, out_len):
     dev = frames_.device
     B, F, N = frames_.shape
-    _check_int_range(B=B, F=F, N=N, O=out_len)
-    _check(frames_, "frames", torch.float32, (B, F, N), dev)
-    _check(starts, "starts", torch.int32, (B, F), dev)
-    _check(nfrms, "nfrms", torch.int32, (B,), dev)
+    _build.check_int_range(B=B, F=F, N=N, O=out_len)
+    _build.check(frames_, "frames", torch.float32, (B, F, N), dev)
+    _build.check(starts, "starts", torch.int32, (B, F), dev)
+    _build.check(nfrms, "nfrms", torch.int32, (B,), dev)
     return dev, B, F, N
 
 
@@ -247,11 +162,12 @@ def ola(frames_, starts, nfrms, *, out_len: int) -> torch.Tensor:
     sample written once)."""
     if frames_.device.type == "cpu":
         return ola_plain(frames_, starts, nfrms, out_len=out_len)
-    _require_cuda(frames_, "ola")
+    _build.require_cuda(frames_, "ola")
     dev, B, F, N = _ola_checks(frames_, starts, nfrms, out_len)
     out = torch.empty(B, out_len, dtype=torch.float32, device=dev)
-    _launch("mp_ola", dev, frames_.data_ptr(), starts.data_ptr(),
-            nfrms.data_ptr(), None, None, out.data_ptr(), B, F, N, out_len, 0)
+    _build.launch(_library(), "mp_ola", dev, frames_.data_ptr(),
+                  starts.data_ptr(), nfrms.data_ptr(), None, None,
+                  out.data_ptr(), B, F, N, out_len, 0)
     ola.launches += 1
     return out
 
@@ -264,14 +180,14 @@ def ola_anti_ring(frames_, starts, nfrms, wl, wr, *,
     if frames_.device.type == "cpu":
         return ola_anti_ring_plain(frames_, starts, nfrms, wl, wr,
                                    out_len=out_len)
-    _require_cuda(frames_, "ola_anti_ring")
+    _build.require_cuda(frames_, "ola_anti_ring")
     dev, B, F, N = _ola_checks(frames_, starts, nfrms, out_len)
-    _check(wl, "wl", torch.int32, (B, F), dev)
-    _check(wr, "wr", torch.int32, (B, F), dev)
+    _build.check(wl, "wl", torch.int32, (B, F), dev)
+    _build.check(wr, "wr", torch.int32, (B, F), dev)
     out = torch.empty(B, out_len, dtype=torch.float32, device=dev)
-    _launch("mp_ola", dev, frames_.data_ptr(), starts.data_ptr(),
-            nfrms.data_ptr(), wl.data_ptr(), wr.data_ptr(), out.data_ptr(),
-            B, F, N, out_len, 1)
+    _build.launch(_library(), "mp_ola", dev, frames_.data_ptr(),
+                  starts.data_ptr(), nfrms.data_ptr(), wl.data_ptr(),
+                  wr.data_ptr(), out.data_ptr(), B, F, N, out_len, 1)
     ola_anti_ring.launches += 1
     return out
 

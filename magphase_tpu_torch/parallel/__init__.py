@@ -1,4 +1,5 @@
 """Batched corpus pipelines (port of magphase_tpu/parallel)."""
+from .analysis_batch import analysis_compressed_batch
 from .batch import synthesis_from_compressed_batch
 
-__all__ = ["synthesis_from_compressed_batch"]
+__all__ = ["analysis_compressed_batch", "synthesis_from_compressed_batch"]

@@ -186,14 +186,14 @@ def synthesis_from_compressed_batch(utts, fs: int,
                                     transport: str = "f16",
                                     keys=None,
                                     det_fft_syn: bool = False,
-                                    *, device):
+                                    *, device="cuda"):
     """Batch synthesis from compressed features.
 
     utts: list of (m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0) numpy
     tuples.  ``keys``: (len(utts), 2) uint32 per-utterance noise keys —
     required (derive them from a global utterance index so each
     utterance's audio is independent of batching).  ``device``: where the
-    work runs (``"cpu"``, ``"cuda"``, ``"cuda:1"``, ...).
+    work runs (``"cuda"`` by default; ``"cpu"``, ``"cuda:1"``, ...).
 
     Returns a list of float64 numpy waveforms, or with
     ``block_result=False`` the (B, O) float32 buffer tensor on ``device``

@@ -46,6 +46,20 @@ def bucket_signal(n: int) -> int:
     return int(_SIG_GRID[i])
 
 
+_FRM_GRID = _geom_grid() * FRM_STEP
+
+
+def bucket_frames(n: int) -> int:
+    """Geometric frame-count bucket (multiples of FRM_STEP, ~1.25x
+    spaced; linear FRM_STEP steps beyond the grid).  Phase 2 of the
+    tracked analysis runs at this bucket of the realised mark count, as
+    the JAX package does."""
+    i = int(np.searchsorted(_FRM_GRID, n))
+    if i >= len(_FRM_GRID):
+        return bucket(n, FRM_STEP)
+    return int(_FRM_GRID[i])
+
+
 def pad_to(arr: np.ndarray, n: int, axis: int = 0, value=0) -> np.ndarray:
     """Pad a host array along ``axis`` to length ``n``."""
     pad = n - arr.shape[axis]

@@ -1,7 +1,9 @@
-"""Compressed-feature synthesis, batched (port of the synthesis side of
-magphase_tpu/vocoder/compressed.py).
+"""Mel compression of analysed streams and compressed-feature synthesis,
+batched (port of magphase_tpu/vocoder/compressed.py).
 
-The v2.0 synthesis of magphase.py:825-997 from mel-compressed features:
+Analysis: the mcep mel warp of format_for_modelling (magphase.py:2490-2544)
+as float32 matmuls.  Synthesis: the v2.0 synthesis of magphase.py:825-997
+from mel-compressed features:
 mel-unwarp (matmuls), keyed hash-noise excitation framed pitch-
 synchronously, spectral assembly of the periodic and aperiodic parts,
 irfft (cuFFT on the card), anti-ringing window and PSOLA overlap-add
@@ -16,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import define_crossfade_params
+from ..config import define_alpha, define_crossfade_params
 from ..core import framing, melcep
 from ..core.filters import butter_highpass_sos, sos_freq_response_rfft
 from ..core.interp import extend_nearest_coeffs
@@ -61,6 +63,67 @@ def max_pitch_sync_framelen(v_shift_i: np.ndarray) -> int:
     pairs = s[:-1] + s[1:]
     return int(max(pairs.max(), 2 * s[-1]) + 1)
 
+
+# ---------------------------------------------------------------------------
+# analysis side: mel compression
+
+def _format_kernel(m_mag, m_real, m_imag, v_voi, *, mag_dim: int,
+                   phase_dim: int, mag_dim_ph: int, alpha: float,
+                   alpha_phase: float, b_mag_fbank_mel: bool = False):
+    """Mel compression of the three spectral streams, rows (n, h) ->
+    (n, mag_dim) log-magnitude and (n, phase_dim) phase coefficients
+    (format_for_modelling, magphase.py:2503-2542).  Only the mcep warp is
+    ported: ``b_mag_fbank_mel=True`` raises ValueError."""
+    if b_mag_fbank_mel:
+        raise ValueError("b_mag_fbank_mel=True: the filter-bank mel warp is "
+                         "not ported; only the mcep warp is")
+    m_mag_mel_log = protected_log(melcep.sp_mel_warp(
+        m_mag, mag_dim, alpha=alpha, in_type=3))
+    voi = v_voi[:, None]
+    m_real_mel = melcep.sp_mel_warp(m_real, mag_dim_ph, alpha=alpha_phase,
+                                    in_type=2)[:, :phase_dim]
+    m_imag_mel = melcep.sp_mel_warp(m_imag, mag_dim_ph, alpha=alpha_phase,
+                                    in_type=2)[:, :phase_dim]
+    m_real_mel = torch.clamp(m_real_mel * voi, -1.0, 1.0)
+    m_imag_mel = torch.clamp(m_imag_mel * voi, -1.0, 1.0)
+    return m_mag_mel_log, m_real_mel, m_imag_mel
+
+
+def format_for_modelling(m_mag, m_real, m_imag, v_f0, fs: int,
+                         mag_dim: int = 60, phase_dim: int = 45,
+                         b_mag_fbank_mel: bool = False,
+                         alpha_phase: float | None = None, *,
+                         device="cuda"):
+    """magphase.py:2490-2544: numpy lossless streams (n, h) and f0 (n,) in,
+    float64 numpy (mag_mel_log, real_mel, imag_mel, lf0) out.  The median-
+    smoothed lf0 is host float64 (scipy), the mel warps run on ``device``."""
+    from scipy import signal as sp_signal
+
+    alpha = define_alpha(fs)
+    if alpha_phase is None:
+        alpha_phase = alpha
+    mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
+        define_crossfade_params(fs)[0], phase_dim, alpha_phase, fs)
+    v_voi = (np.asarray(v_f0) > 0).astype(np.float64)
+    v_f0_smth = v_voi * sp_signal.medfilt(np.asarray(v_f0, np.float64))
+    with np.errstate(divide="ignore"):
+        v_lf0_smth = np.log(np.maximum(v_f0_smth, 0))
+    v_lf0_smth[~np.isfinite(v_lf0_smth)] = -1.0e10
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    outs = _format_kernel(dev(m_mag), dev(m_real), dev(m_imag), dev(v_voi),
+                          mag_dim=mag_dim, phase_dim=phase_dim,
+                          mag_dim_ph=mag_dim_ph, alpha=alpha,
+                          alpha_phase=alpha_phase,
+                          b_mag_fbank_mel=b_mag_fbank_mel)
+    return tuple(o.cpu().numpy().astype(np.float64) for o in outs) + (
+        v_lf0_smth,)
+
+
+# ---------------------------------------------------------------------------
+# synthesis side
 
 class SynthesisTables(torch.nn.Module):
     """The per-configuration constant tables of synthesis, as buffers that

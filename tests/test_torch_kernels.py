@@ -1,4 +1,4 @@
-"""The port's framing/OLA kernels (K1 frames, K2 ola, K3 ola_anti_ring)
+"""The port's kernels (K1 frames, K2 ola, K3 ola_anti_ring, K4 walk)
 against the JAX package.
 
 On the CPU the wrappers run their plain torch versions; these are compared
@@ -6,6 +6,8 @@ with the JAX XLA path and with the Pallas kernels in interpret mode.  The
 CUDA kernels against the plain versions run where a card is present
 (marker ``cuda``) and skip elsewhere.
 """
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -14,12 +16,18 @@ import torch
 
 from magphase_tpu.core import framing as jframing
 from magphase_tpu.core.windows import BOXCAR, HANNING, VOI_NOISE
+from magphase_tpu.epochs import placement_device as jpd
 from magphase_tpu.pallas_kernels.framing_pallas import (frames_pallas,
                                                         ola_pallas,
                                                         pad_signal)
+from magphase_tpu.pallas_kernels.walk_pallas import place_epochs_pallas
+from magphase_tpu.parallel import analysis_batch as jab
+from magphase_tpu.utils.tracker_eval import make_stimulus
 from magphase_tpu_torch.core import framing as tframing
 from magphase_tpu_torch.core import windows as tW
+from magphase_tpu_torch.epochs import placement_device as tpd
 from magphase_tpu_torch.kernels import framing as K
+from magphase_tpu_torch.kernels import walk as K4
 
 B, F, N, S = 3, 64, 512, 8192
 
@@ -218,6 +226,7 @@ def test_wrappers_take_plain_path_on_cpu_and_refuse_other_devices():
     """A CPU tensor runs the plain version and launches nothing; a tensor
     on any device other than CPU or CUDA is refused."""
     K.reset_launch_counts()
+    K4.reset_launch_counts()
     frames, _, pm, nfrms = _ola_inputs(8)
     K.ola(torch.from_numpy(frames), torch.from_numpy(pm - N // 2),
           torch.from_numpy(nfrms), out_len=OUT_LEN)
@@ -226,6 +235,95 @@ def test_wrappers_take_plain_path_on_cpu_and_refuse_other_devices():
     with pytest.raises(ValueError):
         K.ola(meta, torch.empty(B, F, dtype=torch.int32, device="meta"),
               torch.empty(B, dtype=torch.int32, device="meta"), out_len=16)
+    y = torch.zeros(2, 4096)
+    tracks = torch.zeros(2, 16)
+    n_sig = torch.tensor([4000, 100], dtype=torch.int32)
+    n_frm = torch.tensor([16, 2], dtype=torch.int32)
+    kw = dict(fs=16000, m_max=128, frame_step=80.0, snap_w=256)
+    K4.walk(y, tracks, tracks, n_sig, n_frm, **kw)
+    assert K4.launch_counts() == {"walk": 0}
+    with pytest.raises(ValueError):
+        K4.walk(y.to("meta"), tracks.to("meta"), tracks.to("meta"),
+                n_sig.to("meta"), n_frm.to("meta"), **kw)
+
+
+# ---------------------------------------------------------------------------
+# K4, the epoch walk: the plain version against the JAX XLA walk and the
+# Pallas walk in interpret mode, on the walk inputs of the JAX tracker
+
+def _walk_inputs(signals, fs):
+    """(y_snap, f0, voiced, n_sigs, n_frames) numpy from the JAX tracker on
+    the padded batch, and the batch's walk capacity m_max."""
+    _, (sigs, n_sigs, n_frames), _, Tmax, m_max, _ = jab._host_signal_batch(
+        list(signals), fs, None, fft_len=4096)
+    y, f0, voi = jax.vmap(functools.partial(
+        jpd._track_one, fs=fs, n_frames_max=Tmax))(
+        jab._sigs_f32(jnp.asarray(sigs)), jnp.asarray(n_frames))
+    return (tuple(np.asarray(a) for a in (y, f0, voi, n_sigs, n_frames)),
+            m_max)
+
+
+def _walk_cases():
+    rng = np.random.RandomState(0)
+    mixed = [(0.2, None, None), (0.3, 140, 200), (0.15, None, None),
+             (0.3, 220, 110), (0.1, None, None)]
+    voiced = [make_stimulus(48000, mixed, seed=1)[0],
+              make_stimulus(48000, [(0.5, 90, 180)], seed=2)[0]]
+    return {
+        "voiced_unvoiced": (voiced, 48000, None),
+        "noise_and_silence": ([rng.uniform(-0.3, 0.3, 48000), np.zeros(1024)],
+                              48000, None),
+        "capacity_hit": (voiced, 48000, 128),
+        "16k": ([make_stimulus(16000, mixed, seed=3)[0],
+                 make_stimulus(16000, [(0.4, 300, 150)], seed=4)[0]], 16000,
+                None),
+    }
+
+
+@pytest.mark.parametrize("case", ["voiced_unvoiced", "noise_and_silence",
+                                  "capacity_hit", "16k"])
+def test_walk_plain_matches_jax_xla_and_pallas(case):
+    """K4's plain version is bitwise equal to place_epochs_kernel (vmapped)
+    and to place_epochs_pallas in interpret mode: marks, flags, n_marks."""
+    signals, fs, m_cap = _walk_cases()[case]
+    arrs, m_max = _walk_inputs(signals, fs)
+    m_max = m_cap or m_max
+    kw = dict(fs=fs, m_max=m_max, frame_step=jpd._walk_frame_step(fs))
+    ref = jax.vmap(functools.partial(jpd.place_epochs_kernel, **kw))(
+        *(jnp.asarray(a) for a in arrs))
+    pallas = place_epochs_pallas(*(jnp.asarray(a) for a in arrs),
+                                 snap_w=jpd._snap_win(fs), **kw)
+    got = K4.walk(*(torch.from_numpy(a) for a in arrs),
+                  snap_w=tpd._snap_win(fs), **kw)
+    if case == "capacity_hit":
+        assert int(np.asarray(ref[2]).max()) == 128
+    for g, r, p in zip(got, ref, pallas):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(p))
+
+
+@pytest.mark.parametrize("fs", [16000, 44100, 48000])
+def test_walk_frame_index_survives_xla_reciprocal(fs):
+    """XLA compiles the JAX walk's t / frame_step as t times the float32
+    reciprocal; K4 and its plain version divide.  The truncated frame index
+    is the same for every mark position t < 2^21 (~44 s at 48 kHz)."""
+    step = jpd._walk_frame_step(fs)
+    t = np.arange(2 ** 21, dtype=np.int32)
+    ref = np.asarray(jax.jit(lambda a: (a.astype(jnp.float32) / step)
+                             .astype(jnp.int32))(t))
+    tt = torch.from_numpy(t).to(torch.float32)
+    got = (tt / torch.full_like(tt, step)).to(torch.int32).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_walk_constants_round_as_the_jax_walk():
+    """unv_step rounds half to even (Python's round), as the JAX walk
+    computes it: 220 at 44.1 kHz, where C's roundf would give 221."""
+    assert K4.walk_constants(44100, 222.0)["unv_step"] == 220
+    assert K4.walk_constants(48000, 240.0)["unv_step"] == 240
+    c = K4.walk_constants(48000, 240.0)
+    assert c["p_max"] == np.float32(960.0)
+    assert c["lo_wide"] == np.float32(0.65) and c["hi_run"] == np.float32(1.15)
 
 
 # ---------------------------------------------------------------------------
@@ -274,3 +372,22 @@ def test_cuda_ola_kernels_match_plain(cuda_device):
     ref = K.ola_anti_ring_plain(fr, st, nf, wl, wr, out_len=OUT_LEN)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["voiced_unvoiced", "noise_and_silence",
+                                  "capacity_hit", "16k"])
+def test_cuda_walk_kernel_matches_plain(cuda_device, case):
+    """K4 on the card is bitwise its plain version on the card."""
+    signals, fs, m_cap = _walk_cases()[case]
+    arrs, m_max = _walk_inputs(signals, fs)
+    kw = dict(fs=fs, m_max=m_cap or m_max,
+              frame_step=tpd._walk_frame_step(fs), snap_w=tpd._snap_win(fs))
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    before = K4.walk.launches
+    got = K4.walk(*t, **kw)
+    ref = K4.walk_plain(*t, **kw)
+    torch.cuda.synchronize()
+    assert K4.walk.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
