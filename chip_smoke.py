@@ -3,10 +3,10 @@
     python3 chip_smoke.py [--seed N] [--profile]
 
 Builds the CUDA kernels from magphase_tpu_torch/csrc (framing.cu: K1-K3,
-walk.cu: K4; one nvcc per source, started together), checks each against
-its plain torch version at the shapes its path gives it, then drives the
-port's two paths, each with the launch counts set to 0 just before it and
-read just after:
+walk.cu: K4, dft.cu: K5; one nvcc per source, started together), checks
+each against its plain torch version at the shapes its path gives it, then
+drives the port's paths, each with the launch counts set to 0 just before
+it and read just after:
 
 - serving: the lossless analysis/synthesis round trip on synthetic
   voiced/unvoiced signals (K1 + K2), the anti-ringing overlap-add entry
@@ -17,11 +17,20 @@ read just after:
   192 utterances of 3 s at 48 kHz (fft_len 4096, 60/45 dims, tracked
   epochs; K4 in phase 1, K1 in phase 2), after a tracked lossless witness
   (tracker + K4 marks -> K1 -> K2), with the card against the CPU on the
-  8-utterance request.
+  8-utterance request;
+- the K5 lossless witness: the 16 exact-mark witness signals through K1,
+  the fused forward DFT (K5a), the lossless features, the fused inverse
+  DFT (K5b) and K2 (K5 is on no production path, as in the JAX package);
+- lossless copy-synthesis: copy_synthesis_batch requests of 8 and 192
+  utterances of 3 s (tracker + K4, K1 + rfft, irfft + K2), each output
+  held to its input, the phase split of one group, the card against the
+  CPU on 8 utterances, and analysis_lossless_batch from given epochs on
+  the card against the CPU.
 
 ``--profile`` adds a torch.profiler pass over one warm 128-utterance
-serving request and one warm 192-utterance analysis request: the host
-halves' times, device time by kernel and the device's idle share.  Every
+serving request, one warm 192-utterance analysis request and one warm
+192-utterance copy-synthesis request: the host halves' times, device time
+by kernel and the device's idle share.  Every
 phase raises on failure.  Prints one line per phase, then a JSON line
 with each kernel's launches, error, times and bound, the card's name and
 power limit, and last {"ok": true, "device": {...}}.
@@ -51,11 +60,14 @@ ANALYSIS_DISTINCT = 32      # distinct signals, cycled as bench.py:327 does
 CSRC = "magphase_tpu_torch/csrc"
 PALLAS = "magphase_tpu/pallas_kernels"
 SOURCES = {"frames": f"{CSRC}/framing.cu", "ola": f"{CSRC}/framing.cu",
-           "ola_anti_ring": f"{CSRC}/framing.cu", "walk": f"{CSRC}/walk.cu"}
+           "ola_anti_ring": f"{CSRC}/framing.cu", "walk": f"{CSRC}/walk.cu",
+           "rfft_fused": f"{CSRC}/dft.cu", "irfft_fused": f"{CSRC}/dft.cu"}
 REPLACES = {"frames": f"{PALLAS}/framing_pallas.py:56",
             "ola": f"{PALLAS}/framing_pallas.py:241",
             "ola_anti_ring": f"{PALLAS}/framing_pallas.py:246",
-            "walk": f"{PALLAS}/walk_pallas.py:51"}
+            "walk": f"{PALLAS}/walk_pallas.py:51",
+            "rfft_fused": "tools/dft_pallas.py:139",
+            "irfft_fused": "tools/dft_pallas.py:148"}
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense float32, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -83,9 +95,24 @@ TOL_CUDA_VS_CPU = 2e-5
 TOL_ANALYSIS_STREAMS = 8e-4
 TOL_ANALYSIS_LF0_REL = 1.1e-6
 MAX_MARK_DIFF_SHARE = 0.005
+# K5 against its plain version: the bounds of the JAX package's own tests
+# of the tool (tests/test_dft_pallas.py), which the port's plain version
+# meets against the tool on the CPU (tests/test_torch_dft.py): the forward
+# within 1e-5 of the spectrum's peak, the inverse within 1e-6 absolute on
+# unit-scale bins.  Both sum in float32, in another order.
+TOL_RFFT_REL = 1e-5
+TOL_IRFFT_ABS = 1e-6
+# lossless features from given epochs, CUDA vs CPU: the CPU tests measure
+# the port against the JAX package at 1.8e-7 of the peak on magnitudes and
+# 5.0e-5 on phasors where the bin is above 1e-3 of the peak
+# (tests/test_torch_lossless.py); the bounds are ten times those
+TOL_LOSSLESS_MAG_REL = 1.8e-6
+TOL_LOSSLESS_PHASOR = 5e-4
 # warm runs per request size; the median and the spread are reported
 WARM_RUNS = 10
 WARM_RUNS_ANALYSIS = 5
+WARM_RUNS_COPY = 3
+COPY_SIZES = (8, 192)
 
 
 def log(msg: str) -> None:
@@ -440,19 +467,10 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
                                         n_marks, fft_len=4096, out_len_max=S)
     out = out.cpu().numpy()
     del mag, real, imag
-    p99s = []
-    for b, sig in enumerate(a_sigs):
-        n = len(sig)
-        syn = out[b, :n]
-        if not np.all(np.isfinite(syn)):
-            raise AssertionError(f"tracked lossless utt {b}: non-finite")
-        p99 = float(np.percentile(np.abs(syn[2000:n - 2000]
-                                         - sig[2000:n - 2000]), 99))
-        if not p99 < TOL_LOSSLESS_P99:
-            raise AssertionError(f"tracked lossless utt {b}: p99 {p99:.3g}")
-        p99s.append(p99)
+    worst = _p99_vs_input([out[b, :len(s)] for b, s in enumerate(a_sigs)],
+                          a_sigs, "tracked lossless witness")
     log(f"[analysis] tracked lossless witness, {len(a_sigs)} x "
-        f"{UTT_SECONDS} s: worst p99 |syn - sig| {max(p99s):.3g} (< 2^-15)")
+        f"{UTT_SECONDS} s: worst p99 |syn - sig| {worst:.3g} (< 2^-15)")
 
     # the analysis requests: counts from 0 just before, read just after
     K.reset_launch_counts()
@@ -569,12 +587,317 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# K5, the fused two-stage DFT, and the lossless copy-synthesis path
+
+def dft_work(rows: int, n: int) -> tuple[int, float]:
+    """(bytes, float32 operations) that a real DFT of ``rows`` rows of
+    length n needs: the row read once and the two h = n/2+1 bin planes
+    written once (the inverse the other way round), and an FFT's 2.5 n
+    log2 n operations per row (half the 5 n log2 n of a complex FFT)."""
+    h = n // 2 + 1
+    return rows * (n + 2 * h) * 4, rows * 2.5 * n * np.log2(n)
+
+
+def two_stage_ops(rows: int, n: int, inverse: bool) -> int:
+    """Float32 operations of K5's two-stage form as the kernel computes it
+    (n1 = n/128, h = n/2+1), which bound the kernel itself but not the
+    function.  Forward: stage 1 is two real multiply-adds per (j1, j2, k1)
+    (4 operations), the twiddle 6 per (j2, k1), stage 2 four multiply-adds
+    per (j2, kept bin) (8 operations).  Inverse: the bin weights (2 per
+    bin), stage 1 over the n1/2 + 1 rows of j1 the bins occupy (8 per (j1,
+    j2, k1)), the twiddle, and stage 2's real part (4 per (j2, sample))."""
+    n1, h = n // 128, n // 2 + 1
+    if inverse:
+        ops = 2 * h + 8 * 128 * n1 * (n1 // 2 + 1) + 6 * 128 * n1 \
+            + 4 * 128 * n
+    else:
+        ops = 4 * 128 * n1 * n1 + 6 * 128 * n1 + 8 * 128 * h
+    return rows * ops
+
+
+def check_rfft(x, what: str, got=None) -> dict:
+    """K5a on x (rows, n) against its plain version on the same rows, at
+    1e-5 of the spectrum's peak, timed beside cuFFT's torch.fft.rfft (the
+    yardstick; the port never calls it in K5's place).  ``got`` is the
+    kernel's output where the caller already launched it."""
+    from magphase_tpu_torch.kernels import dft as K5
+    rows, n = x.shape
+    if got is None:
+        got = K5.rfft_fused(x, n)
+    ref = K5.rfft_fused_plain(x, n)
+    torch.cuda.synchronize()
+    peak = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    if not err <= TOL_RFFT_REL * peak:
+        raise AssertionError(f"K5a rfft_fused {what}: max |kernel - plain| "
+                             f"{err:.3g} > {TOL_RFFT_REL} x peak {peak:.3g}")
+    del got, ref
+    bnd = bound(*dft_work(rows, n))
+    r = dict(max_abs_err=err, ms=cuda_ms(lambda: K5.rfft_fused(x, n)),
+             plain_ms=cuda_ms(lambda: K5.rfft_fused_plain(x, n), reps=3),
+             bound_ms=bnd[0], bound_by=bnd[1],
+             library_ms=cuda_ms(lambda: torch.fft.rfft(x)))
+    log(f"[kernels] K5a rfft_fused {what}, rows={rows} n={n}: max_abs_err "
+        f"{err:.3g} ({err / peak:.3g} of the peak) kernel {r['ms']:.4f} ms "
+        f"plain {r['plain_ms']:.4f} ms cuFFT rfft {r['library_ms']:.4f} ms "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the two-stage "
+        f"form's FP32 floor {bound(0, two_stage_ops(rows, n, False))[0]:.4f}"
+        " ms")
+    return r
+
+
+def check_irfft(zr, zi, what: str, got=None) -> dict:
+    """K5b on the bin planes (rows, h) against its plain version on the
+    same planes, at 1e-6 absolute, timed beside cuFFT's torch.fft.irfft.
+    ``got`` is the kernel's output where the caller already launched it."""
+    from magphase_tpu_torch.kernels import dft as K5
+    rows, h = zr.shape
+    n = 2 * (h - 1)
+    if got is None:
+        got = K5.irfft_fused(zr, zi, n)
+    ref = K5.irfft_fused_plain(zr, zi, n)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= TOL_IRFFT_ABS:
+        raise AssertionError(f"K5b irfft_fused {what}: max |kernel - plain| "
+                             f"{err:.3g} > {TOL_IRFFT_ABS}")
+    del got, ref
+    z = torch.complex(zr, zi)
+    bnd = bound(*dft_work(rows, n))
+    r = dict(max_abs_err=err, ms=cuda_ms(lambda: K5.irfft_fused(zr, zi, n)),
+             plain_ms=cuda_ms(lambda: K5.irfft_fused_plain(zr, zi, n),
+                              reps=3),
+             bound_ms=bnd[0], bound_by=bnd[1],
+             library_ms=cuda_ms(lambda: torch.fft.irfft(z, n=n)))
+    log(f"[kernels] K5b irfft_fused {what}, rows={rows} n={n}: max_abs_err "
+        f"{err:.3g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+        f"cuFFT irfft {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); the two-stage form's FP32 floor "
+        f"{bound(0, two_stage_ops(rows, n, True))[0]:.4f} ms")
+    return r
+
+
+def check_dft_at_group_shapes(dev, frames, inv_rows: int, inv_n: int,
+                              seed: int) -> None:
+    """K5 at the shapes of a whole group, beside the witness's own: the
+    forward on the K1 frames of one analysis group, the inverse on
+    unit-scale bins at the serving geometry."""
+    check_rfft(frames.reshape(-1, frames.shape[-1]), "on one analysis group")
+    h = inv_n // 2 + 1
+    gen = torch.Generator(dev).manual_seed(seed)
+    zr = torch.randn(inv_rows, h, device=dev, generator=gen)
+    zi = torch.randn(inv_rows, h, device=dev, generator=gen)
+    check_irfft(zr, zi, "at the serving geometry")
+
+
+def run_k5_witness(sigs, w_args, S: int) -> tuple[dict, dict]:
+    """The lossless witness with K5 in place of cuFFT, launch counts from
+    0: the exact-mark witness signals through K1, K5a, the lossless
+    features, the synthesis spectrum, K5b and K2; every utterance held at
+    p99 < 2^-15.  Then K5a and K5b held against their plain versions on
+    the very inputs this path gave them, and timed.  Returns the launch
+    counts and the two kernels' entries of the kernels line."""
+    from magphase_tpu_torch.core import framing
+    from magphase_tpu_torch.core.windows import HANNING
+    from magphase_tpu_torch.kernels import dft as K5
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.vocoder import lossless
+    n = 4096
+    w_sig, w_pm, w_nfrms, w_nsig = w_args
+    K.reset_launch_counts()
+    K5.reset_launch_counts()
+    frames = framing.pitch_sync_frames_batch(w_sig, w_pm, w_nfrms, w_nsig,
+                                             n, win_family=HANNING)[0]
+    re, im = K5.rfft_fused(frames, n)
+    spec = lossless.synthesis_spectrum(*lossless.lossless_features(
+        torch.complex(re, im)))
+    zr, zi = spec.real.contiguous(), spec.imag.contiguous()
+    del spec
+    m_frm = K5.irfft_fused(zr, zi, n)
+    out = framing.ola_centered_batch(m_frm, w_pm, w_nfrms, S).cpu().numpy()
+    counts = {**K.launch_counts(), **K5.launch_counts()}
+    for name in ("frames", "ola", "rfft_fused", "irfft_fused"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the K5 "
+                                 "lossless witness")
+    worst = _p99_vs_input([out[b, :len(s)] for b, s in enumerate(sigs)],
+                          sigs, "K5 lossless witness")
+    log(f"[k5] lossless witness through K1 -> K5a -> K5b -> K2, {len(sigs)} x "
+        f"{UTT_SECONDS} s, fft {n}: worst p99 |syn - sig| {worst:.3g} "
+        f"(< 2^-15); launches {counts}")
+    h = n // 2 + 1
+    results = {
+        "rfft_fused": check_rfft(frames.reshape(-1, n), "on the witness",
+                                 got=(re.reshape(-1, h), im.reshape(-1, h))),
+        "irfft_fused": check_irfft(zr.reshape(-1, h), zi.reshape(-1, h),
+                                   "on the witness",
+                                   got=m_frm.reshape(-1, n))}
+    return counts, results
+
+
+def _p99_vs_input(outs, req, what: str) -> float:
+    """Worst p99 |out - in| away from the edges over a request; raises on a
+    wrong length, a non-finite or silent output or a p99 of one PCM16 step
+    or more."""
+    worst = 0.0
+    for i, (o, sig) in enumerate(zip(outs, req)):
+        n = len(sig)
+        if len(o) != n or not np.all(np.isfinite(o)):
+            raise AssertionError(f"{what}, utt {i}: length {len(o)} != {n} "
+                                 "or non-finite samples")
+        if not np.std(o) > 1e-4:
+            raise AssertionError(f"{what}, utt {i}: silent output")
+        p99 = float(np.percentile(np.abs(o[2000:n - 2000]
+                                         - sig[2000:n - 2000]), 99))
+        if not p99 < TOL_LOSSLESS_P99:
+            raise AssertionError(f"{what}, utt {i}: p99 |out - in| {p99:.3g}")
+        worst = max(worst, p99)
+    return worst
+
+
+def run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois, group, Tmax,
+                            m_max, S) -> dict:
+    """Path 4, lossless copy-synthesis: copy_synthesis_batch requests with
+    the launch counts from 0 (returned), each output held to its input,
+    warm timings, the phase split of one group, the card against the CPU
+    on 8 utterances, and analysis_lossless_batch from given epochs on the
+    card against the CPU."""
+    from magphase_tpu_torch.epochs import placement_device as pd
+    from magphase_tpu_torch.kernels import dft as K5
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    from magphase_tpu_torch.parallel import analysis_batch as ab
+    from magphase_tpu_torch.parallel import copy_synthesis as cs
+    from magphase_tpu_torch.utils.padding import bucket_frames
+    from magphase_tpu_torch.vocoder import lossless
+
+    K.reset_launch_counts()
+    K4.reset_launch_counts()
+    K5.reset_launch_counts()
+    audio, first = {}, {}
+    for n in COPY_SIZES:
+        req = [a_sigs[i % len(a_sigs)] for i in range(n)]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = cs.copy_synthesis_batch(req, FS, device=dev)
+        dt = time.perf_counter() - t0
+        worst = _p99_vs_input(outs, req, f"copy-synthesis request {n}")
+        audio[n] = sum(len(x) for x in req) / FS
+        first[n] = outs
+        log(f"[copy] request of {n} utts ({audio[n]:.1f} audio-s): "
+            f"{dt * 1000:.1f} ms wall, {audio[n] / dt:.1f} audio-s/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (first "
+            f"call); worst p99 |out - in| {worst:.3g} (< 2^-15)")
+    counts = {**K.launch_counts(), **K4.launch_counts(),
+              **K5.launch_counts()}
+    log(f"[copy] launches during the copy-synthesis path: {counts}")
+    for name in ("frames", "ola", "walk"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "copy-synthesis path")
+
+    for n in COPY_SIZES:
+        req = [a_sigs[i % len(a_sigs)] for i in range(n)]
+        walls = []
+        for _ in range(WARM_RUNS_COPY):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cs.copy_synthesis_batch(req, FS, device=dev)
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        log(f"[copy] warm request of {n} utts, {WARM_RUNS_COPY} runs: median "
+            f"{med * 1000:.1f} ms (min {min(walls) * 1000:.1f}, max "
+            f"{max(walls) * 1000:.1f}), {audio[n] / med:.1f} audio-s/s at the "
+            "median (waveforms on the host)")
+
+    # where one group of 32 spends its time on the stream: phase 1 (tracker
+    # + K4), the analysis (K1 + rfft) and the synthesis (irfft + K2)
+    t_sig, t_nsig, t_nfrm = group
+    mk, fl, nm = ab._track_place_impl(t_sig, t_nsig, t_nfrm, fs=FS,
+                                      n_frames_max=Tmax, m_max=m_max)
+    F = min(m_max, bucket_frames(int(nm.max())))
+    mk, fl = mk[:, :F], fl[:, :F]
+    p1 = cuda_ms(lambda: ab._track_place_impl(
+        t_sig, t_nsig, t_nfrm, fs=FS, n_frames_max=Tmax, m_max=m_max),
+        reps=3, warmup=1)
+    an = cuda_ms(lambda: lossless.analysis_core_batch(
+        t_sig, mk, nm, t_nsig, fl, fft_len=4096, fs=FS), reps=3, warmup=1)
+    mag, real, imag, _f0, _sh = lossless.analysis_core_batch(
+        t_sig, mk, nm, t_nsig, fl, fft_len=4096, fs=FS)
+    sy = cuda_ms(lambda: lossless.synthesis_core_batch(
+        mag, real, imag, mk, nm, fft_len=4096, out_len_max=S + (1 << 14)),
+        reps=3, warmup=1)
+    del mag, real, imag
+    log(f"[copy] one group of {t_sig.shape[0]} utts on the stream: phase 1 "
+        f"(track + K4) {p1:.3f} ms, analysis (K1 + rfft, F={F}) {an:.3f} ms, "
+        f"synthesis (irfft + K2) {sy:.3f} ms")
+
+    # the card against the CPU on the smaller request, on the utterances
+    # whose marks agree
+    n_cmp = min(COPY_SIZES)
+    req = [a_sigs[i % len(a_sigs)] for i in range(n_cmp)]
+    t0 = time.perf_counter()
+    cpu = cs.copy_synthesis_batch(req, FS, device="cpu")
+    dt_cpu = time.perf_counter() - t0
+    _, host8, _, Tmax8, m_max8, _ = ab._host_signal_batch(req, FS, 4096)
+    mk_d, mk_c = (pd.track_and_place_batch(
+        *(torch.from_numpy(a).to(d) for a in host8), fs=FS,
+        n_frames_max=Tmax8, m_max=m_max8) for d in (dev, "cpu"))
+    n_same, rel = 0, 0.0
+    for b, (g, c) in enumerate(zip(first[n_cmp], cpu)):
+        nb = int(mk_c[2][b])
+        if int(mk_d[2][b]) != nb or not torch.equal(
+                mk_d[0][b, :nb].cpu(), mk_c[0][b, :nb]):
+            continue
+        n_same += 1
+        rel = max(rel, float(np.abs(g - c).max() / np.abs(c).max()))
+    log(f"[copy] CUDA vs CPU, {n_cmp} utts: marks agree on {n_same}; there "
+        f"max |diff|/peak {rel:.3g} (bound {TOL_CUDA_VS_CPU}); CPU took "
+        f"{dt_cpu * 1000:.1f} ms")
+    if n_same == 0 or not rel <= TOL_CUDA_VS_CPU:
+        raise AssertionError("CUDA vs CPU copy-synthesis out of bounds")
+
+    # analysis_lossless_batch from the witness's exact epochs, card vs CPU
+    eps = [(np.asarray(m) / FS, v) for m, v in zip(marks, vois)]
+    got = ab.analysis_lossless_batch(sigs, FS, epochs=eps, device=dev)
+    ref = ab.analysis_lossless_batch(sigs, FS, epochs=eps, device="cpu")
+    m_err, p_err = 0.0, 0.0
+    for g, r in zip(got, ref):
+        if not (np.array_equal(g[4], r[4]) and np.array_equal(g[3], r[3])):
+            raise AssertionError("analysis_lossless_batch: shift or f0 differ"
+                                 " between the card and the CPU")
+        peak = float(np.abs(r[0]).max())
+        m_err = max(m_err, float(np.abs(g[0] - r[0]).max()) / peak)
+        big = r[0] > 1e-3 * peak
+        p_err = max(p_err, max(float(np.abs(g[i][big] - r[i][big]).max())
+                               for i in (1, 2)))
+    log(f"[copy] analysis_lossless_batch from given epochs, {len(sigs)} "
+        f"utts, CUDA vs CPU: shift and f0 equal; mag {m_err:.3g} of the peak"
+        f" (bound {TOL_LOSSLESS_MAG_REL}), phasor {p_err:.3g} where mag > "
+        f"1e-3 of the peak (bound {TOL_LOSSLESS_PHASOR})")
+    if not (m_err <= TOL_LOSSLESS_MAG_REL and p_err <= TOL_LOSSLESS_PHASOR):
+        raise AssertionError("CUDA vs CPU lossless features out of bounds")
+    return counts
+
+
+def profile_copy_synthesis(a_sigs, dev) -> None:
+    """Where the time of one warm 192-utterance copy-synthesis request
+    goes (profile_call)."""
+    from magphase_tpu_torch.parallel import copy_synthesis as cs
+    req = [a_sigs[i % len(a_sigs)] for i in range(max(COPY_SIZES))]
+    profile_call(f"copy-synthesis request of {len(req)} utts",
+                 lambda: cs.copy_synthesis_batch(req, FS, device=dev))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one warm 128-utterance serving request "
-                    "and one warm 192-utterance analysis request")
+                    help="profile one warm 128-utterance serving request, "
+                    "one warm 192-utterance analysis request and one warm "
+                    "192-utterance copy-synthesis request")
     args = ap.parse_args()
 
     # phase 1 — environment
@@ -582,6 +905,7 @@ def main() -> None:
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke run needs a CUDA card and does not run on the CPU")
     from magphase_tpu_torch.kernels import _build
+    from magphase_tpu_torch.kernels import dft as K5
     from magphase_tpu_torch.kernels import framing as K
     from magphase_tpu_torch.kernels import walk as K4
 
@@ -599,19 +923,22 @@ def main() -> None:
 
     # phase 2 — build, one nvcc per source, started together
     t0 = time.perf_counter()
-    infos = _build.build(K.SOURCE, K4.SOURCE)
+    infos = _build.build(K.SOURCE, K4.SOURCE, K5.SOURCE)
     for name, info in infos.items():
         ptx = [ln.strip() for ln in info["log"].splitlines()
                if "registers" in ln or "spill" in ln]
         log(f"[build] {name}: {info['path']} in {info['seconds']:.2f} s "
             f"(cached={info['cached']}); ptxas: {' | '.join(ptx)}")
-    log(f"[build] both sources in {time.perf_counter() - t0:.2f} s wall")
+    log(f"[build] {len(infos)} sources in {time.perf_counter() - t0:.2f} s "
+        "wall")
 
     from magphase_tpu_torch.core import framing
+    from magphase_tpu_torch.core.windows import HANNING
     from magphase_tpu_torch.epochs import placement_device as pd
     from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.parallel import batch
     from magphase_tpu_torch.utils.padding import (FRM_STEP, bucket,
+                                                  bucket_frames,
                                                   bucket_signal)
     from magphase_tpu_torch.vocoder import lossless
 
@@ -800,7 +1127,16 @@ def main() -> None:
         f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {samples} window samples, "
         f"{steps} steps); longest walk {n_max_marks} marks, "
         f"{r['ms'] * 1e3 / n_max_marks:.3f} us per step of it")
+
+    # K5 against its plain version: the forward on the K1 frames of this
+    # analysis group at its realised frame bucket, the inverse at the
+    # 128-utterance serving geometry
+    F_a = min(m_max_a, bucket_frames(n_max_marks))
+    frames_a = framing.pitch_sync_frames_batch(
+        t_sig, got[0][:, :F_a], got[2], t_nsig, 4096, win_family=HANNING)[0]
     del got, ref
+    check_dft_at_group_shapes(dev, frames_a, Bs * Fs_, fft_syn, args.seed)
+    del frames_a
 
     # path 1, serving: counts from 0, lossless round trip + serving requests
     K.reset_launch_counts()
@@ -817,21 +1153,10 @@ def main() -> None:
     dt = time.perf_counter() - t0
     out = out.cpu().numpy()
     del mag, real, imag
-    p99s = []
-    for b in range(B):
-        n = len(sigs[b])
-        syn = out[b, :n]
-        if not np.all(np.isfinite(syn)):
-            raise AssertionError(f"lossless utt {b}: non-finite output")
-        if not np.std(syn) > 1e-4:
-            raise AssertionError(f"lossless utt {b}: silent output")
-        p99 = float(np.percentile(np.abs(syn[2000:n - 2000]
-                                         - sigs[b][2000:n - 2000]), 99))
-        if not p99 < TOL_LOSSLESS_P99:
-            raise AssertionError(f"lossless utt {b}: p99 err {p99:.3g}")
-        p99s.append(p99)
+    worst = _p99_vs_input([out[b, :len(s)] for b, s in enumerate(sigs)],
+                          sigs, "lossless witness")
     log(f"[lossless] B={B} {UTT_SECONDS} s signals, fft 4096: worst p99 "
-        f"|syn - sig| {max(p99s):.3g} (< 2^-15), {dt * 1000:.1f} ms")
+        f"|syn - sig| {worst:.3g} (< 2^-15), {dt * 1000:.1f} ms")
 
     # the anti-ringing OLA entry, ola_centered_batch(ar_shifts=) (K3), at
     # the 128-utterance serving geometry, against the two-pass form that
@@ -911,15 +1236,23 @@ def main() -> None:
             f"{max(walls) * 1000:.1f}), {audio_s / med:.1f} audio-s/s at the "
             "median (device buffers, no download)")
 
+    counts_k5, k5_results = run_k5_witness(
+        sigs, (w_sig, w_pm, w_nfrms, w_nsig), S)
+    results.update(k5_results)
     counts_a = run_analysis_path(dev, a_sigs, a_marks, a_vois,
                                  (t_sig, t_nsig, t_nfrm), Tmax_a, m_max_a,
                                  S_a)
+    run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois,
+                            (t_sig, t_nsig, t_nfrm), Tmax_a, m_max_a, S_a)
 
     if args.profile:
         profile_request(feats, keys_all, dev)
         profile_analysis(a_sigs, dev)
+        profile_copy_synthesis(a_sigs, dev)
 
-    launches = {**counts, "walk": counts_a["walk"]}
+    launches = {**counts, "walk": counts_a["walk"],
+                "rfft_fused": counts_k5["rfft_fused"],
+                "irfft_fused": counts_k5["irfft_fused"]}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

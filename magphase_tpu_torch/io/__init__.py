@@ -1,0 +1,11 @@
+"""File I/O (port of magphase_tpu/io: wav, featfile and est, numpy only)."""
+from .est import read_est_file, read_reaper_est_file, write_reaper_est_file
+from .featfile import read_binfile, write_binfile, write_featfile
+from .wav import (read_audio_file, read_wav, read_wav_info, write_audio_file,
+                  write_wav)
+
+__all__ = [
+    "read_wav", "read_wav_info", "write_wav", "read_audio_file",
+    "write_audio_file", "read_binfile", "write_binfile", "write_featfile",
+    "read_est_file", "read_reaper_est_file", "write_reaper_est_file",
+]

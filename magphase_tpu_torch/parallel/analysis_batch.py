@@ -1,14 +1,21 @@
-"""Batched compressed analysis from waveforms: epoch tracking, pitch-
-synchronous analysis and mel compression (port of
-magphase_tpu/parallel/analysis_batch.py: analysis_compressed_batch and
-track_f0_batch).
+"""Batched analysis from waveforms: epoch tracking, pitch-synchronous
+analysis and mel compression (port of
+magphase_tpu/parallel/analysis_batch.py: analysis_compressed_batch,
+analysis_lossless_batch and track_f0_batch).
 
 A request is split into groups under the frame-element budget; each group
 runs two phases on the device.  Phase 1 tracks and places the epochs
 (tracker + kernel K4); the (B,) mark counts come to the host; phase 2
-analyses (kernel K1 + rfft) and mel-compresses at the realised frame
-bucket.  This is the JAX package's synced schedule, whose outputs it
-states are bitwise those of its speculative one.
+analyses (kernel K1 + rfft), and for the compressed entry mel-compresses,
+at the realised frame bucket.  This is the JAX package's synced schedule,
+whose outputs it states are bitwise those of its speculative one.  The
+lossless entry's JAX program analyses at the walk capacity and slices the
+frames to the realised bucket afterwards; the port analyses at the
+realised bucket directly, which gives the same frames (a frame reads
+only its own and its neighbours' marks, and marks past the mark count are
+zeros either way).  Groups run one after another:
+the JAX package's upload/compute/download threads (run_staged) are a host-
+link workaround and are not ported.
 """
 from __future__ import annotations
 
@@ -32,6 +39,11 @@ from .batch import budget_batch_cap, capped_batch_step
 logger = logging.getLogger(__name__)
 
 FEAT_DTYPES = (np.float16, np.float32)
+# encodings of analysis_lossless_batch's tracked features: exact float32;
+# the phasor as an int16 angle; that plus a per-(utterance, bin) affine
+# uint16 magnitude
+TRANSPORTS = ("f32", "compact", "compact16")
+_ANGLE_STEPS = float(np.float32(32768.0 / np.pi))   # int16 steps per radian
 
 # utterances redone with the host walk because the device walk hit its
 # mark capacity (n_marks == m_max), since the process started
@@ -86,6 +98,37 @@ def _host_signal_batch(signals: list, fs: int, fft_len: int = 4096):
     n_sigs = np.asarray([len(s) for s in signals], np.int32)
     n_frames, Tmax = _tracker_frame_geometry(signals, fs)
     return signals, (sigs, n_sigs, n_frames), S, Tmax, m_max, n_real
+
+
+def _given_epochs_rows(signals, epochs, fs: int, max_b: int, device):
+    """The given-epochs batch on ``device``: the batch axis padded with
+    silent dummies (two marks each) to the bucket step, signals to the
+    signal bucket, marks (rounded to samples) and voicing to the frame
+    bucket.  Returns ((sig, pm, nfrms, n_sig, voi) tensors, the real
+    utterances' frame counts, their voicing as float64)."""
+    n_real = len(signals)
+    B = bucket(n_real, capped_batch_step(max_b))
+    if B > n_real:
+        d_ep = (np.asarray([100, 300]) / float(fs), np.zeros(2))
+        signals = list(signals) + [np.zeros(1024)] * (B - n_real)
+        epochs = list(epochs) + [d_ep] * (B - n_real)
+    pms = [np.asarray(np.round(np.asarray(p) * fs), np.int64)
+           for p, _ in epochs]
+    vois = [np.asarray(v, np.float64) for _, v in epochs]
+    nfrms = [len(p) for p in pms]
+    S = bucket_signal(max(len(s) for s in signals))
+    F = bucket(max(nfrms), FRM_STEP)
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    rows = (dev(np.stack([pad_to(np.asarray(s, np.float32), S)
+                          for s in signals])),
+            dev(np.stack([pad_to(p.astype(np.int32), F) for p in pms])),
+            dev(np.asarray(nfrms, np.int32)),
+            dev(np.asarray([len(s) for s in signals], np.int32)),
+            dev(np.stack([pad_to(v.astype(np.float32), F) for v in vois])))
+    return rows, nfrms[:n_real], vois[:n_real]
 
 
 def _track_place_impl(sigs, n_sigs, n_frames, *, fs: int,
@@ -234,41 +277,19 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
                 group, fs, feats_f16=feats_f16, device=device, **kw))
         return out
 
-    n_real = len(signals)
     max_b = _epochs_budget(epochs, fft_len)
-    if n_real > max_b:
+    if len(signals) > max_b:
         out = []
-        for i in range(0, n_real, max_b):
+        for i in range(0, len(signals), max_b):
             out.extend(analysis_compressed_batch(
                 signals[i:i + max_b], fs, mag_dim=mag_dim,
                 phase_dim=phase_dim, fft_len=fft_len,
                 epochs=epochs[i:i + max_b], alpha_phase=alpha_phase,
                 device=device))
         return out
-    B = bucket(n_real, capped_batch_step(max_b))
-    if B > n_real:
-        d_ep = (np.asarray([100, 300]) / float(fs), np.zeros(2))
-        signals = list(signals) + [np.zeros(1024)] * (B - n_real)
-        epochs = list(epochs) + [d_ep] * (B - n_real)
-
-    pms = [np.asarray(np.round(np.asarray(p) * fs), np.int64)
-           for p, _ in epochs]
-    vois = [np.asarray(v, np.float64) for _, v in epochs]
-    nfrms = [len(p) for p in pms]
-    S = bucket_signal(max(len(s) for s in signals))
-    F = bucket(max(nfrms), FRM_STEP)
-
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
-    sigs_d = dev(np.stack([pad_to(np.asarray(s, np.float32), S)
-                           for s in signals]))
-    pm_d = dev(np.stack([pad_to(p.astype(np.int32), F) for p in pms]))
-    voi_d = dev(np.stack([pad_to(v.astype(np.float32), F) for v in vois]))
-    nfrms_d = dev(np.asarray(nfrms, np.int32))
-    nsig_d = dev(np.asarray([len(s) for s in signals], np.int32))
-    mag, real, imag, f0, shift = analysis_core_batch(
-        sigs_d, pm_d, nfrms_d, nsig_d, voi_d, fft_len=fft_len, fs=fs)
+    rows, nfrms, _ = _given_epochs_rows(signals, epochs, fs, max_b, device)
+    mag, real, imag, f0, shift = analysis_core_batch(*rows, fft_len=fft_len,
+                                                     fs=fs)
     mml, mrm, mim, lf0 = _compress_streams(
         mag, real, imag, f0, **{k: v for k, v in kw.items()
                                 if k != "fft_len"})
@@ -277,7 +298,159 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
     return [(mml[b, :n].astype(np.float64), mrm[b, :n].astype(np.float64),
              mim[b, :n].astype(np.float64), lf0[b, :n].astype(np.float64),
              shift[b, :n].astype(np.int64))
-            for b, n in enumerate(nfrms[:n_real])]
+            for b, n in enumerate(nfrms)]
+
+
+# ---------------------------------------------------------------------------
+# lossless analysis
+
+def _encode_lossless(mag, real, imag, n_marks, transport: str):
+    """The tracked features in ``transport``'s encoding, on their device:
+    'f32' (mag, real, imag); 'compact' (mag, the phasor's angle as int16
+    steps of pi/32768, rounded half to even as jnp.rint); 'compact16'
+    (the magnitude as round((mag - lo) / scale) in [0, 65535], with lo and
+    scale = (hi - lo) / 65535 per (utterance, bin) over the valid frames,
+    and the int16 angle)."""
+    if transport == "f32":
+        return dict(mag=mag, real=real, imag=imag)
+    ang_i16 = torch.clamp(torch.round(torch.atan2(imag, real)
+                                      * _ANGLE_STEPS),
+                          -32768, 32767).to(torch.int16)
+    if transport == "compact":
+        return dict(mag=mag, ang=ang_i16)
+    F = mag.shape[1]
+    valid = (torch.arange(F, device=mag.device)[None, :, None]
+             < n_marks[:, None, None])
+    big = 3.0e38
+    lo = torch.amin(torch.where(valid, mag, big), dim=1)
+    hi = torch.amax(torch.where(valid, mag, -big), dim=1)
+    lo = torch.minimum(lo, hi)
+    scale = torch.where(hi > lo, (hi - lo) / 65535.0, 1.0)
+    q = torch.clamp(torch.round((mag - lo[:, None, :]) / scale[:, None, :]),
+                    0, 65535).to(torch.int32)
+    return dict(q=q, ang=ang_i16, scale=scale, lo=lo)
+
+
+def _decode_lossless(enc: dict, b: int, n: int):
+    """(mag, real, imag) float32 of utterance b's first n frames from the
+    host copy of ``_encode_lossless``'s output, as the JAX package decodes
+    it; a digitally silent bin (mag 0) keeps the phasor (0, 0) of the exact
+    transport."""
+    if "real" in enc:
+        return enc["mag"][b, :n], enc["real"][b, :n], enc["imag"][b, :n]
+    if "q" in enc:
+        mag = (enc["q"][b, :n].astype(np.float64) * enc["scale"][b]
+               + enc["lo"][b]).astype(np.float32)
+    else:
+        mag = enc["mag"][b, :n]
+    a = enc["ang"][b, :n].astype(np.float64) * (np.pi / 32768.0)
+    nz = mag > 0.0
+    return (mag, np.where(nz, np.cos(a), 0.0).astype(np.float32),
+            np.where(nz, np.sin(a), 0.0).astype(np.float32))
+
+
+def _analyze_lossless_tracked_group(group, fs, *, fft_len, transport,
+                                    device):
+    """Phase 1 and the lossless analysis for one budget group of the
+    tracked branch, at the realised frame bucket (a multiple of 128, as the
+    JAX package trims to)."""
+    global capacity_fallbacks
+    signals_g, host, S, Tmax, m_max, n_real = _host_signal_batch(
+        group, fs, fft_len)
+    sigs, n_sigs, n_frames = (torch.from_numpy(a).to(device) for a in host)
+    marks, flags, n_marks = _track_place_impl(
+        sigs, n_sigs, n_frames, fs=fs, n_frames_max=Tmax, m_max=m_max)
+    nm = n_marks.cpu().numpy()
+    Fa = min(m_max, bucket(int(nm.max()), FRM_STEP))
+    mag, real, imag, _f0, shift = analysis_core_batch(
+        sigs, marks[:, :Fa], n_marks, n_sigs, flags[:, :Fa],
+        fft_len=fft_len, fs=fs)
+    enc = {k: v.cpu().numpy() for k, v in _encode_lossless(
+        mag, real, imag, n_marks, transport).items()}
+    shift, flags = shift.cpu().numpy(), flags[:, :Fa].cpu().numpy()
+    out = []
+    for b in range(n_real):
+        n = int(nm[b])
+        sh = shift[b, :n].astype(np.int64)
+        f0 = (flags[b, :n].astype(np.float64) * fs
+              / np.maximum(sh, 1).astype(np.float64))
+        out.append(_decode_lossless(enc, b, n) + (f0, sh))
+
+    # a walk that hit its capacity is redone with the host walk and the
+    # given-epochs branch, as the JAX package does
+    trunc = [b for b in range(n_real) if int(nm[b]) >= m_max]
+    if trunc:
+        logger.warning("epoch-walk capacity hit for %d utterance(s); "
+                       "host-walk fallback", len(trunc))
+        capacity_fallbacks += len(trunc)
+        eps = [tracker.extract_epochs(signals_g[b], fs, device=device)
+               for b in trunc]
+        fixed = analysis_lossless_batch(
+            [signals_g[b] for b in trunc], fs, fft_len=fft_len, epochs=eps,
+            device=device)
+        for j, b in enumerate(trunc):
+            out[b] = fixed[j]
+    return out
+
+
+def analysis_lossless_batch(signals: list, fs: int,
+                            fft_len: int | None = None,
+                            epochs: list | None = None,
+                            mesh=None, transport: str = "f32", *,
+                            device="cuda"):
+    """Batched lossless analysis of waveforms.  Returns a list of
+    (m_mag, m_real, m_imag) float32 (n, fft_len/2+1), v_f0 float64 (n,)
+    and v_shift int64 (n,) numpy arrays, one per signal.
+
+    ``epochs=None``: the built-in tracker places the epochs (phase 1), then
+    the analysis runs at the realised frame bucket.  ``transport`` (tracked
+    branch): 'f32' (exact), 'compact' (the phasor through an int16 angle)
+    or 'compact16' (that, and the magnitude through a per-(utterance, bin)
+    affine uint16), each decoded on the host as the JAX package does.
+    ``epochs``: a list of (pm_sec, voi) per signal instead of the tracker;
+    that branch returns the exact features whatever ``transport`` says, as
+    in the JAX package.  ``device``: where the work runs.
+
+    Raise ValueError: a ``mesh`` (multi-device analysis is not ported) and
+    any ``transport`` outside TRANSPORTS."""
+    if mesh is not None:
+        raise ValueError("mesh must be None: multi-device analysis is not "
+                         "supported")
+    if transport not in TRANSPORTS:
+        raise ValueError(f"unknown transport {transport!r}; one of "
+                         f"{TRANSPORTS}")
+    device = torch.device(device)
+    if fft_len is None:
+        fft_len = define_fft_len(fs)
+
+    if epochs is None:
+        out = []
+        for group in _split_for_budget(signals, fs, fft_len):
+            out.extend(_analyze_lossless_tracked_group(
+                group, fs, fft_len=fft_len, transport=transport,
+                device=device))
+        return out
+
+    max_b = _epochs_budget(epochs, fft_len)
+    if len(signals) > max_b:
+        out = []
+        for i in range(0, len(signals), max_b):
+            out.extend(analysis_lossless_batch(
+                signals[i:i + max_b], fs, fft_len=fft_len,
+                epochs=epochs[i:i + max_b], device=device))
+        return out
+    rows, nfrms, vois = _given_epochs_rows(signals, epochs, fs, max_b,
+                                           device)
+    mag, real, imag, _f0, shift = analysis_core_batch(*rows, fft_len=fft_len,
+                                                      fs=fs)
+    mag, real, imag, shift = (x.cpu().numpy()
+                              for x in (mag, real, imag, shift))
+    out = []
+    for b, n in enumerate(nfrms):
+        sh = shift[b, :n].astype(np.int64)
+        out.append((mag[b, :n], real[b, :n], imag[b, :n],
+                    vois[b][:n] * fs / sh.astype(np.float64), sh))
+    return out
 
 
 def track_f0_batch(signals: list, fs: int, *, device="cuda"):

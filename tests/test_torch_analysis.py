@@ -31,8 +31,10 @@ from magphase_tpu_torch.epochs import extract_epochs
 from magphase_tpu_torch.epochs import tracker as tt
 from magphase_tpu_torch.parallel import analysis_batch as tab
 from magphase_tpu_torch.parallel import batch as tbatch
+from magphase_tpu_torch.parallel import copy_synthesis as tcs
 from magphase_tpu_torch.utils import padding as tpadding
 from magphase_tpu_torch.vocoder import compressed as tcompressed
+from magphase_tpu_torch.vocoder import lossless as tlossless
 
 FS = 48000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -296,7 +298,10 @@ def test_fbank_mel_warp_raises():
 @pytest.mark.parametrize("fn", [
     tab.analysis_compressed_batch, tab.track_f0_batch, extract_epochs,
     tt.track_f0, tcompressed.format_for_modelling,
-    tbatch.synthesis_from_compressed_batch])
+    tbatch.synthesis_from_compressed_batch, tab.analysis_lossless_batch,
+    tcs.copy_synthesis_batch, tlossless.analysis_lossless,
+    tlossless.analysis_with_del_comp_from_pm,
+    tlossless.synthesis_from_lossless, tlossless.synthesis_with_del_comp])
 def test_public_entries_default_to_the_card(fn):
     """Every public entry of the port runs on the card unless the caller
     asks for the CPU."""
