@@ -119,6 +119,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def ptxas_report(build_log: str) -> list:
+    """One entry per kernel of ptxas -v's report: registers, stack frame,
+    spills and static shared memory, under the kernel's name and template
+    argument."""
+    out, name, spill = [], "?", []
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:ILi(\d+)E)?", ln)
+            name = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
+                    else m.group(1) if m else ln.split("'")[1])
+        elif "spill stores" in ln:
+            spill = re.findall(r"(\d+) bytes (?:stack|spill)", ln)
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{name} {regs} regs, stack/spill st/ld "
+                       f"{'/'.join(spill)} B, "
+                       f"smem {smem.group(1) if smem else 0} B")
+    return out
+
+
 def nvidia_smi() -> str:
     exe = shutil.which("nvidia-smi")
     if exe is None:
@@ -588,7 +609,7 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
 
 
 # ---------------------------------------------------------------------------
-# K5, the fused two-stage DFT, and the lossless copy-synthesis path
+# K5, the real DFT (a radix-16 FFT), and the lossless copy-synthesis path
 
 def dft_work(rows: int, n: int) -> tuple[int, float]:
     """(bytes, float32 operations) that a real DFT of ``rows`` rows of
@@ -599,21 +620,14 @@ def dft_work(rows: int, n: int) -> tuple[int, float]:
     return rows * (n + 2 * h) * 4, rows * 2.5 * n * np.log2(n)
 
 
-def two_stage_ops(rows: int, n: int, inverse: bool) -> int:
-    """Float32 operations of K5's two-stage form as the kernel computes it
-    (n1 = n/128, h = n/2+1), which bound the kernel itself but not the
-    function.  Forward: stage 1 is two real multiply-adds per (j1, j2, k1)
-    (4 operations), the twiddle 6 per (j2, k1), stage 2 four multiply-adds
-    per (j2, kept bin) (8 operations).  Inverse: the bin weights (2 per
-    bin), stage 1 over the n1/2 + 1 rows of j1 the bins occupy (8 per (j1,
-    j2, k1)), the twiddle, and stage 2's real part (4 per (j2, sample))."""
-    n1, h = n // 128, n // 2 + 1
-    if inverse:
-        ops = 2 * h + 8 * 128 * n1 * (n1 // 2 + 1) + 6 * 128 * n1 \
-            + 4 * 128 * n
-    else:
-        ops = 4 * 128 * n1 * n1 + 6 * 128 * n1 + 8 * 128 * h
-    return rows * ops
+def dft_shares(r: dict, rows_tensor) -> str:
+    """The share of the bound K5 reached (bound_ms / ms), its time over
+    cuFFT's, and, as the card's practical rate for the same bytes, the
+    time of a device copy of the (rows, n) side (``clone``)."""
+    copy_ms = cuda_ms(rows_tensor.clone)
+    return (f"{r['bound_ms'] / r['ms']:.1%} of the {r['bound_by']} bound, "
+            f"{r['ms'] / r['library_ms']:.3f}x cuFFT's time; a copy of the "
+            f"rows takes {copy_ms:.4f} ms ({r['bound_ms'] / copy_ms:.1%})")
 
 
 def check_rfft(x, what: str, got=None) -> dict:
@@ -641,9 +655,8 @@ def check_rfft(x, what: str, got=None) -> dict:
     log(f"[kernels] K5a rfft_fused {what}, rows={rows} n={n}: max_abs_err "
         f"{err:.3g} ({err / peak:.3g} of the peak) kernel {r['ms']:.4f} ms "
         f"plain {r['plain_ms']:.4f} ms cuFFT rfft {r['library_ms']:.4f} ms "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the two-stage "
-        f"form's FP32 floor {bound(0, two_stage_ops(rows, n, False))[0]:.4f}"
-        " ms")
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+        f"{dft_shares(r, x)}")
     return r
 
 
@@ -662,7 +675,7 @@ def check_irfft(zr, zi, what: str, got=None) -> dict:
     if not err <= TOL_IRFFT_ABS:
         raise AssertionError(f"K5b irfft_fused {what}: max |kernel - plain| "
                              f"{err:.3g} > {TOL_IRFFT_ABS}")
-    del got, ref
+    del ref
     z = torch.complex(zr, zi)
     bnd = bound(*dft_work(rows, n))
     r = dict(max_abs_err=err, ms=cuda_ms(lambda: K5.irfft_fused(zr, zi, n)),
@@ -673,8 +686,7 @@ def check_irfft(zr, zi, what: str, got=None) -> dict:
     log(f"[kernels] K5b irfft_fused {what}, rows={rows} n={n}: max_abs_err "
         f"{err:.3g} kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
         f"cuFFT irfft {r['library_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}); the two-stage form's FP32 floor "
-        f"{bound(0, two_stage_ops(rows, n, True))[0]:.4f} ms")
+        f"({r['bound_by']}); {dft_shares(r, got)}")
     return r
 
 
@@ -925,10 +937,13 @@ def main() -> None:
     t0 = time.perf_counter()
     infos = _build.build(K.SOURCE, K4.SOURCE, K5.SOURCE)
     for name, info in infos.items():
-        ptx = [ln.strip() for ln in info["log"].splitlines()
-               if "registers" in ln or "spill" in ln]
         log(f"[build] {name}: {info['path']} in {info['seconds']:.2f} s "
-            f"(cached={info['cached']}); ptxas: {' | '.join(ptx)}")
+            f"(cached={info['cached']}); ptxas: "
+            f"{' | '.join(ptxas_report(info['log']))}")
+    for n_ in (4096, 2048):
+        for inv in (False, True):
+            log(f"[build] K5 {'irfft' if inv else 'rfft'} n={n_}: "
+                f"{K5.kernel_occupancy(n_, inv)}")
     log(f"[build] {len(infos)} sources in {time.perf_counter() - t0:.2f} s "
         "wall")
 

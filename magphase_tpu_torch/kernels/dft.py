@@ -1,25 +1,32 @@
-"""The fused two-stage DFT, kernel K5: CUDA C++ for Hopper, with its plain
-torch version.
+"""The real DFT, kernel K5: a radix-16 Stockham FFT in CUDA C++ for Hopper,
+with its plain torch version, the tool's two-stage matmul form.
 
 Counterpart of ``rfft_fused`` and ``irfft_fused`` (tools/dft_pallas.py:170,
 :204; kernel bodies ``_rfft_kernel`` :139 and ``_irfft_kernel`` :148), the
-JAX package's experimental fused matmul DFT.  For n = n1 * 128, input index
-j = j1*128 + j2 and output index k = k2*n1 + k1:
+JAX package's experimental fused matmul DFT.  The forward returns the
+h = n/2+1 bins of a real row of n as separate float32 planes (re, im); the
+inverse takes such planes and returns np.fft.irfft's result (it drops the
+imaginary part of DC and Nyquist).  n is any power of two from 256 to
+N_MAX.
+
+The plain version is the tool's form: for n = n1 * 128, input index
+j = j1*128 + j2 and output index k = k2*n1 + k1,
 
     X[k2*n1 + k1] = sum_j2 D2[j2,k2] TW[j2,k1] sum_j1 D1[j1,k1] x[j1*128 + j2]
 
-The forward returns the h = n/2+1 bins as separate float32 planes (re, im);
-the inverse takes such planes, weights them by [1, 2, ..., 2, 1]/n (the
-hermitian mirror folded into the stored bins, ``hermitian_fold_weights``),
-zero-pads them to n and returns the real part of the inverse stages, which
-is np.fft.irfft's result (it drops the imaginary part of DC and Nyquist).
-n is any power of two from 256 to N_MAX.
+and the inverse weights the bins by [1, 2, ..., 2, 1]/n (the hermitian
+mirror folded into the stored bins, ``hermitian_fold_weights``), zero-pads
+them to n and keeps the real part of the inverse stages.
+
+The kernel (csrc/dft.cu) computes the same function by another
+factorisation: the real row is a complex row of m = n/2 points, an FFT of
+m points in registers and shared memory (radix-16 Stockham passes, plan
+``fft_plan``, twiddles ``fft_twiddles``), and a pass that pairs bin k with
+m - k.  It is bound by its bytes, not its operations, so it reads each
+input once and writes each output once, with coalesced accesses.
 
 Like the tool, no production path calls K5: ``torch.fft`` serves the
-vocoder.  The CUDA source is csrc/dft.cu: one block per row, the row and
-the stage-1 planes in shared memory, FP32 FMAs; it is bound by the FP32
-operations of the two-stage form, ~20x an FFT's, where the function itself
-is bound by its bytes.  Dispatch is by tensor device and nothing else: a CPU tensor
+vocoder.  Dispatch is by tensor device and nothing else: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises (a
 failed build or load included).  The wrappers count their launches in
 ``rfft_fused.launches`` and ``irfft_fused.launches``.
@@ -38,7 +45,8 @@ from . import _build
 SOURCE = _build.CSRC / "dft.cu"
 
 N2 = 128                   # the stage-2 length (the tool's lane width)
-N_MAX = 8192               # the kernel's shared-memory layout holds n1 <= 64
+N_MAX = 8192               # the kernel is instantiated for n <= 8192
+RADIX = 16                 # the kernel's points per thread and main radix
 
 
 @functools.lru_cache(maxsize=32)
@@ -73,6 +81,45 @@ def hermitian_fold_weights(n: int) -> np.ndarray:
     w[0] = 1.0 / n
     w[-1] = 1.0 / n
     return w
+
+
+def fft_plan(n: int, inverse: bool = False) -> list:
+    """Radices of the kernel's FFT of m = n/2 points, in pass order
+    (csrc/dft.cu ``radix``).  Forward: 16s (and one 2 or 4 where log2 m
+    asks for it), then a tail of 2, 4 or 8, the pass next to the bins; the
+    inverse runs them in reverse order."""
+    bits = (int(n) // 2).bit_length() - 1
+    tail = bits % 4 if bits % 4 in (1, 2) else 3
+    head = bits - tail
+    plan = ([RADIX] * (head // 4) + ([1 << head % 4] if head % 4 else [])
+            + [1 << tail])
+    return plan[::-1] if inverse else plan
+
+
+@functools.lru_cache(maxsize=32)
+def fft_twiddles(n: int, inverse: bool) -> np.ndarray:
+    """The kernel's twiddles as float32 (re, im) pairs, shape (entries, 2),
+    computed in float64 and rounded once.  For each pass after the first
+    (``fft_plan(n, inverse)``), with Ns the product of the radices before
+    it and R its own, W_{Ns R}^{r k} at [(r-1)*Ns + k] for 1 <= r < R,
+    k < Ns; then W_n^k for k <= n/4.  W_N = exp(-2 pi i / N), or its
+    conjugate for the inverse."""
+    sign = 2j if inverse else -2j
+    parts, ns = [], 1
+    for r in fft_plan(n, inverse):
+        if ns > 1:
+            rk = np.outer(np.arange(1, r), np.arange(ns))
+            parts.append(np.exp(sign * np.pi * rk / (ns * r)).ravel())
+        ns *= r
+    parts.append(np.exp(sign * np.pi * np.arange(n // 4 + 1) / n))
+    w = np.concatenate(parts)
+    return np.ascontiguousarray(np.stack([w.real, w.imag], -1)
+                                .astype(np.float32))
+
+
+@functools.lru_cache(maxsize=32)
+def _device_twiddles(device: torch.device, n: int, inverse: bool):
+    return torch.from_numpy(fft_twiddles(n, inverse)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -137,11 +184,29 @@ def irfft_fused_plain(zr: torch.Tensor, zi: torch.Tensor, n: int):
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mp_rfft_fused.argtypes = [ptr] * 9 + [i32] * 2 + [ptr]
+    lib.mp_rfft_fused.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.mp_rfft_fused.restype = i32
-    lib.mp_irfft_fused.argtypes = [ptr] * 10 + [i32] * 2 + [ptr]
+    lib.mp_irfft_fused.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
     lib.mp_irfft_fused.restype = i32
+    lib.mp_dft_occupancy.argtypes = [i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.mp_dft_occupancy.restype = i32
     return lib
+
+
+def kernel_occupancy(n: int, inverse: bool) -> dict:
+    """The n-point kernel's launch shape on the current card: threads and
+    rows per block, dynamic shared memory per block, and the blocks the
+    card keeps resident on one SM (by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    _check_length(n)
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    rc = lib.mp_dft_occupancy(int(n), int(inverse), out)
+    if rc != 0:
+        raise RuntimeError(f"mp_dft_occupancy: CUDA error {rc}: "
+                           f"{lib.mp_error_string(rc).decode()}")
+    return dict(zip(("threads", "rows_per_block", "smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 def _rows(t: torch.Tensor, width: int, name: str) -> torch.Tensor:
@@ -153,7 +218,7 @@ def _rows(t: torch.Tensor, width: int, name: str) -> torch.Tensor:
 def rfft_fused(x: torch.Tensor, n: int):
     """K5a: the rfft of real x (..., n) as two float32 planes (re, im) of
     shape (..., n/2+1); n a power of two from 256 to N_MAX."""
-    n1 = _check_length(n)
+    _check_length(n)
     h = n // 2 + 1
     lead = x.shape[:-1]
     x2 = _rows(x, n, "x")
@@ -164,12 +229,13 @@ def rfft_fused(x: torch.Tensor, n: int):
         dev = x2.device
         rows = x2.shape[0]
         _build.check_int_range(rows=rows)
+        if x2.data_ptr() % 8:               # the kernel loads float2
+            x2 = x2.clone()
         re = torch.empty(rows, h, dtype=torch.float32, device=dev)
         im = torch.empty(rows, h, dtype=torch.float32, device=dev)
-        tabs = _device_tables(dev, n, False)[:6]
+        tw = _device_twiddles(dev, n, False)
         _build.launch(_library(), "mp_rfft_fused", dev, x2.data_ptr(),
-                      re.data_ptr(), im.data_ptr(),
-                      *(t.data_ptr() for t in tabs), rows, n1)
+                      re.data_ptr(), im.data_ptr(), tw.data_ptr(), rows, n)
         rfft_fused.launches += 1
     return re.reshape(*lead, h), im.reshape(*lead, h)
 
@@ -177,7 +243,7 @@ def rfft_fused(x: torch.Tensor, n: int):
 def irfft_fused(zr: torch.Tensor, zi: torch.Tensor, n: int):
     """K5b: the real inverse of the h = n/2+1 bins (zr, zi) (..., h) as
     float32 (..., n); n a power of two from 256 to N_MAX."""
-    n1 = _check_length(n)
+    _check_length(n)
     h = n // 2 + 1
     if zr.shape != zi.shape:
         raise ValueError(f"zr {tuple(zr.shape)} and zi {tuple(zi.shape)} "
@@ -193,10 +259,9 @@ def irfft_fused(zr: torch.Tensor, zi: torch.Tensor, n: int):
         _build.check_int_range(rows=rows)
         _build.check(zi2, "zi", torch.float32, (rows, h), dev)
         y = torch.empty(rows, n, dtype=torch.float32, device=dev)
-        tabs = _device_tables(dev, n, True)
+        tw = _device_twiddles(dev, n, True)
         _build.launch(_library(), "mp_irfft_fused", dev, zr2.data_ptr(),
-                      zi2.data_ptr(), tabs[6].data_ptr(), y.data_ptr(),
-                      *(t.data_ptr() for t in tabs[:6]), rows, n1)
+                      zi2.data_ptr(), y.data_ptr(), tw.data_ptr(), rows, n)
         irfft_fused.launches += 1
     return y.reshape(*lead, n)
 
