@@ -4,7 +4,9 @@
 
 Builds the CUDA kernels from magphase_tpu_torch/csrc (framing.cu: K1-K3,
 walk.cu: K4, dft.cu: K5; one nvcc per source, started together), checks
-each against its plain torch version at the shapes its path gives it, then
+each against its plain torch version at the shapes its path gives it (K1
+beside a device fill of its output, K4 beside the chain probe that gives
+the walk's own bound), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -126,7 +128,7 @@ def ptxas_report(build_log: str) -> list:
     out, name, spill = [], "?", []
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:ILi(\d+)E)?", ln)
+            m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:IL[ib](\d+)E)?", ln)
             name = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
                     else m.group(1) if m else ln.split("'")[1])
         elif "spill stores" in ln:
@@ -151,10 +153,18 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over ``reps`` calls, by CUDA events."""
+    """Mean device time of fn() over ``reps`` calls, by CUDA events.  A
+    run of 256 MB fills (~0.09 ms each) is queued first, so that the host
+    enqueues the calls while the card is still busy: the events then time
+    the card's work and not the host's launch rate, which a kernel of
+    some 0.06 ms would otherwise be held to.  The buffer lives only for
+    this call, so no request's peak memory counts it."""
+    headstart = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    for _ in range(reps):
+        headstart.zero_()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -362,9 +372,13 @@ def profile_analysis(a_sigs, dev, reps: int = 5) -> None:
 
 
 def _kernel_label(name: str) -> str:
-    """A short label for a CUDA kernel's mangled template name: the
-    elementwise functor or the ``*_kernel_impl``/``*_kernel_cuda`` lambda
-    it runs, else the name up to its template arguments."""
+    """A short label for a CUDA kernel's mangled template name: the port's
+    own kernel (a name that starts in an anonymous namespace), the elementwise functor
+    or the ``*_kernel_impl``/``*_kernel_cuda`` lambda it runs, else the
+    name up to its template arguments."""
+    m = re.match(r"\s*(?:void\s+)?\(anonymous namespace\)::(\w+)", name)
+    if m:
+        return m.group(1)
     m = re.search(r"(\w+_kernel_(?:impl|cuda))\b", name)
     if m:
         return m.group(1)
@@ -424,6 +438,21 @@ def walk_work(f0, n_sigs, n_frames, marks, flags, n_marks, fs: int,
                 np.int64))
         samples += int(np.sum(np.where(voi, np.maximum(hi - lo, 0), 0)))
     return samples, steps
+
+
+CHAIN_PROBE_STEPS = 61200
+
+
+def walk_chain_ns(dev, frame_step: float, S: int) -> float:
+    """ns per step of the walk's dependent skeleton alone (one warp, its
+    data in shared memory: the frame index as K4 takes it for rows of S
+    samples, a table word, a window read, the key, two redux), by the probe
+    kernel of csrc/walk.cu: what a step of K4 cannot go below on this
+    card."""
+    from magphase_tpu_torch.kernels import walk as K4
+    ms = cuda_ms(lambda: K4.chain_probe(CHAIN_PROBE_STEPS, frame_step, S,
+                                        dev), reps=5, warmup=1)
+    return ms * 1e6 / CHAIN_PROBE_STEPS
 
 
 def period_errors(marks, flags, n_marks, true_marks, true_vois):
@@ -1003,12 +1032,17 @@ def main() -> None:
         max_abs_err=err, ms=cuda_ms(lambda: K.frames(*k1_args, **k1_kw)),
         plain_ms=cuda_ms(lambda: K.frames_plain(*k1_args, **k1_kw), reps=3),
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
-    log(f"[kernels] K1 frames B={B} F={F} N=4096 S={S}: max_abs_err {err:.3g} "
-        f"kernel {results['frames']['ms']:.4f} ms plain "
-        f"{results['frames']['plain_ms']:.4f} ms bound "
-        f"{results['frames']['bound_ms']:.4f} ms "
-        f"({results['frames']['bound_by']})")
+    # the card's practical rate for the same stores: a fill of the output
+    shape = tuple(got.shape)
     del got, ref
+    fill_ms = cuda_ms(lambda: torch.zeros(shape, device=dev))
+    r = results["frames"]
+    log(f"[kernels] K1 frames B={B} F={F} N=4096 S={S}: max_abs_err {err:.3g} "
+        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
+        f"{r['bound_ms'] / r['ms']:.1%} of the bound; a torch.zeros of the "
+        f"output takes {fill_ms:.4f} ms ({r['bound_ms'] / fill_ms:.1%} of the "
+        f"bound), the kernel {r['ms'] / fill_ms:.3f}x that")
 
     # K2/K3 at the geometry of the 128-utterance serving request
     utts128 = feats
@@ -1127,21 +1161,36 @@ def main() -> None:
     n_max_marks = int(got[2].max())
     # bytes: the window samples the voiced steps read, two track values and
     # the counts per step, the outputs once; operations: a compare and a
-    # select per window sample
-    bnd = bound(4 * samples + 8 * steps + nbytes(t_nsig, t_nfrm, *got),
-                2 * samples)
+    # select per window sample.  Neither binds a serial chain: the walk's
+    # bound is the steps of the longest walk (its marks and the step that
+    # ends it) times the probe's time per step of the dependent skeleton.
+    bytes_bnd = bound(4 * samples + 8 * steps + nbytes(t_nsig, t_nfrm, *got),
+                      2 * samples)
+    chain_ns = walk_chain_ns(dev, fstep, S_a)
+    # the same skeleton with the IEEE division that a frame step that is
+    # no integer takes (no path of this run does)
+    chain_ns_fdiv = walk_chain_ns(dev, fstep + 0.5, S_a)
+    chain_ms = (n_max_marks + 1) * chain_ns * 1e-6
+    bnd = (chain_ms, "chain") if chain_ms >= bytes_bnd[0] else bytes_bnd
     results["walk"] = dict(
         max_abs_err=k4_err, ms=cuda_ms(lambda: K4.walk(*k4_args, **k4_kw)),
         plain_ms=cuda_ms(lambda: K4.walk_plain(*k4_args, **k4_kw), reps=2,
                          warmup=1),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        bytes_bound_ms=bytes_bnd[0], chain_ns_per_step=chain_ns)
     r = results["walk"]
     log(f"[kernels] K4 walk B={len(a_sigs)} S={S_a} T={Tmax_a} "
         f"m_max={m_max_a} snap_w={pd._snap_win(FS)}: bitwise equal to plain; "
-        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound "
-        f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {samples} window samples, "
-        f"{steps} steps); longest walk {n_max_marks} marks, "
-        f"{r['ms'] * 1e3 / n_max_marks:.3f} us per step of it")
+        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms; longest walk "
+        f"{n_max_marks} marks, {r['ms'] * 1e3 / n_max_marks:.4f} us per step "
+        f"of it; chain probe {chain_ns:.2f} ns per step "
+        f"({CHAIN_PROBE_STEPS} steps; {chain_ns_fdiv:.2f} with the float "
+        f"division), bound {r['bound_ms']:.6f} ms "
+        f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of it reached; "
+        f"bytes bound {bytes_bnd[0]:.6f} ms ({bytes_bnd[1]}; {samples} window"
+        f" samples, {steps} steps)")
+    log(f"[kernels] K4 launch shape: ring {K4.ring_geometry(FS)}, "
+        f"{K4.kernel_occupancy(FS, Tmax_a)}")
 
     # K5 against its plain version: the forward on the K1 frames of this
     # analysis group at its realised frame bucket, the inverse at the
@@ -1272,7 +1321,9 @@ def main() -> None:
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    **{k: r[k] for k in ("bytes_bound_ms",
+                                         "chain_ns_per_step") if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,13 +8,18 @@ kernels live in csrc/framing.cu:
 - K2 ``ola``            replaces ``_ola_kernel`` (framing_pallas.py:241)
 - K3 ``ola_anti_ring``  replaces ``_ola_ar_kernel`` (framing_pallas.py:246)
 
-All three are memory-bound on the card: each output element costs one
-4-byte gather and one 4-byte store against a few dozen integer/float
-operations, so their bound is device-memory bandwidth.  One thread per
-output element keeps both the gather and the store coalesced.  The OLA is
-written as a gather (each output sample sums the frames covering it, in
-frame order) rather than a float-atomic scatter, so it is deterministic
-and bitwise equal to an in-order scatter-add.
+All three are memory-bound on the card: they move far more bytes than
+they compute on, so their bound is device-memory bandwidth.  K1 writes the
+(B, F, N) frames, most of which are zeros (a frame holds about two pitch
+periods in N samples; rows past nfrms hold nothing), so it gives one block
+to each frame row: the row's scalars are read once, the row is split into
+its right half, a zero span and its left half, each
+thread stores 16-byte quads, and a quad wholly inside the zero span costs
+no arithmetic.  The OLA kernels take one thread per output element, which
+keeps both the gather and the store coalesced.  The OLA is written as a
+gather (each output sample sums the frames covering it, in frame order)
+rather than a float-atomic scatter, so it is deterministic and bitwise
+equal to an in-order scatter-add.
 
 Dispatch is by tensor device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises (a failed build
@@ -117,7 +122,9 @@ def frames(sig, pm, L, R, voi, nfrms, n_sig, *, fft_len: int,
     sig (B, S) float32; pm, L, R (B, F) int32; voi (B, F) float32;
     nfrms, n_sig (B,) int32; all contiguous, on one device.  See
     ``frames_plain`` for the definition.  Bound on the card: device-memory
-    bandwidth (one signal gather + one store per output element)."""
+    bandwidth (the (B, F, N) output written once; the signal stays in the
+    L2 cache).  One block per frame row, 16-byte stores when
+    fft_len % 4 == 0, single elements else."""
     if sig.device.type == "cpu":
         return frames_plain(sig, pm, L, R, voi, nfrms, n_sig, fft_len=fft_len,
                             fam_voiced=fam_voiced, fam_unvoiced=fam_unvoiced)

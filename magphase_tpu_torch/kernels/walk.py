@@ -4,10 +4,20 @@ torch version.
 Counterpart of ``_walk_kernel`` (magphase_tpu/pallas_kernels/
 walk_pallas.py:51, entry ``place_epochs_pallas``), which restates
 ``place_epochs_kernel`` of magphase_tpu/epochs/placement_device.py.  The
-CUDA source is csrc/walk.cu: one warp walks one utterance, with a warp
-shuffle reduction for the trough.  The walk is a serial chain per
-utterance (each mark starts the next window), so it is bound by latency,
-not by bytes.
+CUDA source is csrc/walk.cu.
+
+What bounds it on the card: the walk is a serial chain per utterance (each
+mark starts the next window), so its time is marks x the latency of one
+step, not bytes and not operations.  One block walks one utterance and
+keeps global memory off that chain: the tracks become a per-frame table
+of window offsets in shared memory (the walk's own float32 operations,
+done once per frame), three producer warps keep a ring of the signal in
+shared memory ahead of the one walker warp (``ring_geometry``), the
+walker reads only the searched span, the minimum is two ``redux``
+instructions on an order-preserving integer key, and the frame index is
+a multiply-high where that equals the float32 division
+(``frame_divider``).  ``chain_probe`` times the step's dependent skeleton
+alone: the walk's own bound.
 
 Dispatch is by tensor device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises (a failed build
@@ -30,6 +40,13 @@ SNAP_HALF_RUN = 0.15
 SNAP_HALF_ONSET = 0.35
 SNAP_ONSET_MARKS = 4
 
+# the ring of csrc/walk.cu: the producers copy chunks of CHUNK samples
+# (kChunk) into a ring of a power-of-two number of chunks, at most
+# MAX_CHUNKS (kMaxChunks)
+CHUNK = 2048
+MIN_RING = 16384
+MAX_CHUNKS = 16
+
 
 def walk_constants(fs: int, frame_step: float) -> dict:
     """The walk's constants as the JAX walk rounds them: float32 frame
@@ -43,6 +60,44 @@ def walk_constants(fs: int, frame_step: float) -> dict:
                 hi_wide=f32(1.0 + SNAP_HALF_ONSET),
                 lo_run=f32(1.0 - SNAP_HALF_RUN),
                 hi_run=f32(1.0 + SNAP_HALF_RUN))
+
+
+def ring_geometry(fs: int) -> dict:
+    """The kernel's ring for sampling rate ``fs``: ``reach``, the most
+    samples beyond t that a window can touch (positions below
+    t + floor(hi_wide * p_max)); ``ring`` samples, the power of two from
+    MIN_RING up that holds a window and the chunk being filled twice over;
+    ``chunk``.  A producer may fill chunk c once
+    (c + 1) * chunk - ring <= t, so the walker at t always gets the chunks
+    under [t, t + reach) because reach + chunk <= ring."""
+    c = walk_constants(fs, 1.0)
+    reach = int(np.floor(c["hi_wide"] * c["p_max"]))
+    ring = MIN_RING
+    while ring < 2 * (reach + CHUNK):
+        ring *= 2
+    if ring > MAX_CHUNKS * CHUNK or reach >= 2 ** 15:
+        raise ValueError(f"walk: fs={fs} needs a window reach of {reach} "
+                         f"samples, beyond the kernel's ring")
+    return dict(reach=reach, ring=ring, chunk=CHUNK)
+
+
+def frame_divider(frame_step: float, S: int):
+    """(magic, shift) with trunc(float32(t) / float32(frame_step)) ==
+    (t * magic) >> (32 + shift) for every integer 0 <= t <= S, or None
+    where the kernel must divide in float32.  Holds for an integer step
+    s >= 2 with S + s < 2^24: t is exact in float32, and the real quotient
+    t / s lies at least 1/s below the next integer, more than the half ulp
+    (at most (t / s + 1) * 2^-24) by which the rounded float quotient can
+    exceed it, so truncation gives the integer quotient; and
+    magic = ceil(2^k / s), k = 31 + floor(log2 s), overshoots 2^k / s by
+    less than 2^k / (s * 2^24), too little to carry t * magic past a
+    multiple of 2^k for t < 2^24."""
+    step = float(np.float32(frame_step))
+    s = int(step)
+    if s != step or s < 2 or S + s >= 2 ** 24:
+        return None
+    shift = s.bit_length() - 2
+    return -(-2 ** (32 + shift) // s), shift
 
 
 def walk_plain(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
@@ -126,9 +181,49 @@ def walk_plain(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mp_walk.argtypes = [ptr] * 8 + [i32] * 7 + [f32] * 7 + [ptr]
+    lib.mp_walk.argtypes = ([ptr] * 8 + [i32] * 8 + [ctypes.c_uint, i32]
+                            + [f32] * 7 + [ptr])
     lib.mp_walk.restype = i32
+    lib.mp_walk_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.mp_walk_occupancy.restype = i32
+    lib.mp_walk_chain_probe.argtypes = [i32, ctypes.c_uint, i32, f32, ptr,
+                                        ptr]
+    lib.mp_walk_chain_probe.restype = i32
     return lib
+
+
+def kernel_occupancy(fs: int, T: int) -> dict:
+    """The kernel's launch shape on the current card for sampling rate
+    ``fs`` and T tracker frames: threads per block, dynamic shared memory
+    per block (the ring and the frame table) and the blocks the card keeps
+    resident on one SM."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.mp_walk_occupancy(ring_geometry(fs)["ring"].bit_length() - 1,
+                               int(T), out)
+    if rc != 0:
+        raise RuntimeError(f"mp_walk_occupancy: CUDA error {rc}: "
+                           f"{lib.mp_error_string(rc).decode()}")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), out))
+
+
+def chain_probe(steps: int, frame_step: float, S: int,
+                device) -> torch.Tensor:
+    """Launch the chain probe of csrc/walk.cu: one warp runs ``steps``
+    steps of the walk's dependent skeleton (the frame index as ``walk``
+    takes it for rows of S samples, one table word and one window read in
+    shared memory, the key, two redux) and nothing else.  Returns the
+    final position (1,) int32.  A measuring tool: no path of the package
+    calls it, and it is not counted as a launch of K4."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"chain_probe: device {dev}; the probe runs on "
+                         "CUDA only")
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    _build.launch(_library(), "mp_walk_chain_probe", dev, int(steps),
+                  *(frame_divider(frame_step, S) or (0, 0)),
+                  float(np.float32(frame_step)), out.data_ptr())
+    return out
 
 
 def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
@@ -137,8 +232,11 @@ def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
 
     All tensors contiguous on one device: y_snap (B, S) float32 with
     S >= snap_w; f0, voiced (B, T) float32; n_sigs, n_frames (B,) int32.
-    Bound on the card: the serial per-mark chain (a dependent lookup and a
-    warp reduction per mark), not bytes."""
+    Bound on the card: the serial per-mark chain (the frame index, a
+    table word, the window's shared-memory reads and two warp reductions
+    per mark), not bytes.  The block keeps 8 bytes per tracker frame and the
+    ring in shared memory; a T beyond what the card grants a block (some
+    20,000 frames, 100 s of signal) is refused by the launch and raises."""
     if y_snap.device.type == "cpu":
         return walk_plain(y_snap, f0, voiced, n_sigs, n_frames, fs=fs,
                           m_max=m_max, frame_step=frame_step, snap_w=snap_w)
@@ -147,14 +245,16 @@ def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
     B, S = y_snap.shape
     T = f0.shape[1]
     _build.check_int_range(B=B, S=S, T=T, m_max=m_max, snap_w=snap_w)
-    if S < snap_w or m_max < 1:
-        raise ValueError(f"walk: S={S} < snap_w={snap_w} or m_max={m_max}")
+    if S < snap_w or m_max < 1 or T < 1:
+        raise ValueError(f"walk: S={S} < snap_w={snap_w}, m_max={m_max} or "
+                         f"T={T} < 1")
     _build.check(y_snap, "y_snap", torch.float32, (B, S), dev)
     _build.check(f0, "f0", torch.float32, (B, T), dev)
     _build.check(voiced, "voiced", torch.float32, (B, T), dev)
     _build.check(n_sigs, "n_sigs", torch.int32, (B,), dev)
     _build.check(n_frames, "n_frames", torch.int32, (B,), dev)
     c = walk_constants(fs, frame_step)
+    ring_log2 = ring_geometry(fs)["ring"].bit_length() - 1
     marks = torch.empty(B, m_max, dtype=torch.int32, device=dev)
     flags = torch.empty(B, m_max, dtype=torch.float32, device=dev)
     n_marks = torch.empty(B, dtype=torch.int32, device=dev)
@@ -162,7 +262,8 @@ def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
                   f0.data_ptr(), voiced.data_ptr(), n_sigs.data_ptr(),
                   n_frames.data_ptr(), marks.data_ptr(), flags.data_ptr(),
                   n_marks.data_ptr(), B, S, T, m_max, snap_w, c["unv_step"],
-                  c["onset_marks"],
+                  c["onset_marks"], ring_log2,
+                  *(frame_divider(frame_step, S) or (0, 0)),
                   *(float(c[k]) for k in ("frame_step", "fs", "p_max",
                                           "lo_wide", "hi_wide", "lo_run",
                                           "hi_run")))

@@ -391,3 +391,451 @@ def test_cuda_walk_kernel_matches_plain(cuda_device, case):
     assert K4.walk.launches == before + 1
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def _assert_walk_kernel_is_plain(t, kw):
+    """K4 on CUDA tensors ``t`` equals its plain version bit for bit, and
+    a second launch writes the same bytes."""
+    got = K4.walk(*t, **kw)
+    again = K4.walk(*t, **kw)
+    ref = K4.walk_plain(*t, **kw)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r)
+        assert torch.equal(g, a)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "empty_span", "n_sig_near_S"])
+def test_cuda_walk_kernel_matches_plain_on_synthetic_rows(cuda_device, case):
+    """K4 on the card on the rows that tie, end in an empty span and reach
+    the end of the padded row, repeated to a batch of 7 (no multiple of
+    anything), one row shifted by a sample."""
+    arrs, fs, _ = _synthetic_walk_case(case)
+    reps = [np.concatenate([a, a, a, a[:1]]) for a in arrs]
+    reps[0][3] = np.roll(reps[0][3], 1)
+    t = [torch.from_numpy(a).to(cuda_device) for a in reps]
+    kw = dict(fs=fs, m_max=tpd.placement_m_max(reps[0].shape[1], fs),
+              frame_step=tpd._walk_frame_step(fs), snap_w=tpd._snap_win(fs))
+    _assert_walk_kernel_is_plain(t, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_cuda_walk_kernel_at_its_smallest_shapes(cuda_device, fs):
+    """K4 on the card with S == snap_w, T == 1 and m_max == 1, on a voiced
+    and an unvoiced row and one whose signal ends inside the first window;
+    and with a row that is not 16-byte aligned (a view one sample into a
+    longer buffer), which takes the 4-byte copies."""
+    rng = np.random.default_rng(14)
+    snap_w = tpd._snap_win(fs)
+    y = torch.from_numpy(rng.standard_normal((3, snap_w)).astype(np.float32))
+    f0 = torch.tensor([[100.0], [0.0], [100.0]])
+    voi = torch.tensor([[1.0], [0.0], [1.0]])
+    n_sig = torch.tensor([snap_w, snap_w, fs // 100 + 5], dtype=torch.int32)
+    n_frm = torch.ones(3, dtype=torch.int32)
+    t = [a.to(cuda_device) for a in (y, f0, voi, n_sig, n_frm)]
+    for m_max in (1, 64):
+        got = _assert_walk_kernel_is_plain(
+            t, dict(fs=fs, m_max=m_max, frame_step=tpd._walk_frame_step(fs),
+                    snap_w=snap_w))
+        assert int(got[2][2]) <= 1 and int(got[2].max()) >= 1
+    # rows 4 bytes off a 16-byte boundary
+    S_odd = 4 * snap_w + 1
+    buf = torch.from_numpy(rng.standard_normal(3 * S_odd + 1).astype(
+        np.float32)).to(cuda_device)
+    y_odd = buf[1:].view(3, S_odd)
+    assert y_odd.data_ptr() % 16 != 0 and y_odd.is_contiguous()
+    T = S_odd // int(tpd._walk_frame_step(fs)) + 1
+    t = [y_odd, torch.full((3, T), 150.0, device=cuda_device),
+         torch.ones(3, T, device=cuda_device),
+         torch.tensor([S_odd, S_odd - 7, 900], dtype=torch.int32,
+                      device=cuda_device),
+         torch.full((3,), T, dtype=torch.int32, device=cuda_device)]
+    _assert_walk_kernel_is_plain(
+        t, dict(fs=fs, m_max=256, frame_step=tpd._walk_frame_step(fs),
+                snap_w=snap_w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,frames_per_row", [(1024, 64), (2048, 64),
+                                              (4096, 64), (510, 64),
+                                              (4096, 1)])
+def test_cuda_frames_kernel_writes_every_element(cuda_device, n,
+                                                 frames_per_row):
+    """K1 on the card against its plain version at fft lengths 1024, 2048
+    and 4096, at a length that is no multiple of 4 (single-element stores)
+    and with one frame per utterance, into memory that held NaN before:
+    every element is written, and none differs by more than 1e-6."""
+    sig, pm, nfrms, n_sig, voi = _frames_inputs(15)
+    Fr = frames_per_row
+    d = cuda_device
+    pm, voi = pm[:, :Fr].copy(), voi[:, :Fr].copy()
+    nfrms = np.minimum(nfrms, Fr).astype(np.int32)
+    t = [torch.from_numpy(a).to(d) for a in (sig, pm, nfrms, n_sig, voi)]
+    _, L, R, _ = tframing.frame_geometry_batch(t[1], t[2], t[3])
+    args = (t[0], t[1], L.to(torch.int32).contiguous(),
+            R.to(torch.int32).contiguous(), t[4], t[2], t[3])
+    kw = dict(fft_len=n, fam_voiced=VOI_NOISE, fam_unvoiced=HANNING)
+    ref = K.frames_plain(*args, **kw)
+    # the caching allocator hands the wrapper's torch.empty this block
+    poison = torch.full((B, Fr, n), float("nan"), device=d)
+    ptr = poison.data_ptr()
+    del poison
+    got = K.frames(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert not bool(torch.isnan(got).any())
+    assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fams", FAMILIES)
+def test_cuda_frames_kernel_row_cases_match_plain(cuda_device, fams):
+    """K1 on the card on the rows of ``_ROW_CASES`` (boundaries inside
+    quads and on their edges, no zero span, L = 0, rows on the general
+    path, rows past nfrms) against its plain version: 1e-6."""
+    arrs = _row_case_inputs(16)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    kw = dict(fft_len=N, fam_voiced=fams[0], fam_unvoiced=fams[1])
+    got = K.frames(*t, **kw)
+    ref = K.frames_plain(*t, **kw)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# numpy models of the index schemes that csrc/walk.cu and csrc/framing.cu
+# run on the card, held against the plain versions here on the CPU
+
+def _order_key(v):
+    """The walk kernel's order-preserving map of float32 to uint32: -0
+    folded to +0, then the bits inverted where the sign is set, else the
+    sign bit set."""
+    u = np.asarray(v, np.float32).view(np.uint32).copy()
+    u[(u << np.uint32(1)) == 0] = 0
+    neg = (u & np.uint32(0x80000000)) != 0
+    return np.where(neg, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def test_walk_order_key_orders_as_float_compare():
+    """key(a) < key(b) iff a < b and key(a) == key(b) iff a == b, for every
+    pair of non-NaN float32 values, -0 and +0 and the infinities included."""
+    rng = np.random.default_rng(11)
+    v = np.concatenate([
+        rng.standard_normal(200).astype(np.float32),
+        rng.integers(0, 2 ** 32, 200, dtype=np.uint64).astype(np.uint32)
+        .view(np.float32),
+        np.asarray([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45], np.float32)])
+    v = v[~np.isnan(v)]
+    k = _order_key(v)
+    np.testing.assert_array_equal(k[:, None] < k[None, :],
+                                  v[:, None] < v[None, :])
+    np.testing.assert_array_equal(k[:, None] == k[None, :],
+                                  v[:, None] == v[None, :])
+    assert _order_key(np.float32(np.inf)) == 0xff800000
+
+
+def _walk_model(y, f0, voiced, n_sig, n_frames, *, fs, m_max, frame_step,
+                snap_w, eager):
+    """One utterance as csrc/walk.cu walks it: the per-frame table of
+    window offsets, the frame index by multiply-high where the host found
+    that exact, the ring (position mod ring length) with its chunks,
+    refill threshold and ready numbers, the searched span only, and the
+    minimum as least key, then least position among the lanes holding it.
+    ``eager`` fills every chunk as soon as the threshold allows (the
+    producers far ahead: a chunk overwritten too early shows as a wrong
+    position in the slot); otherwise a chunk is filled only when the
+    walker waits for it (the producers as late as can be: a chunk the
+    threshold does not allow yet would hang the kernel, and asserts here).
+    Returns (marks, flags, n_marks, stats)."""
+    f32 = np.float32
+    c = K4.walk_constants(fs, frame_step)
+    g = K4.ring_geometry(fs)
+    ring_n, chunk, reach = g["ring"], g["chunk"], g["reach"]
+    mask, slots = ring_n - 1, ring_n // chunk
+    S, T = len(y), len(f0)
+    n_sig, n_frames = int(n_sig), int(n_frames)
+
+    is_voi_t = (voiced > 0) & (f0 > 0)
+    period = np.where(is_voi_t, c["fs"] / np.maximum(f0, f32(1.0)),
+                      f32(c["unv_step"])).astype(f32)
+    period = np.minimum(period, c["p_max"])
+    tab = {k: np.floor(c[k] * period).astype(np.int64)
+           for k in ("lo_wide", "hi_wide", "lo_run", "hi_run")}
+    assert all(int(v.max()) < 2 ** 15 for v in tab.values())
+
+    ring = np.full(ring_n, np.nan, f32)
+    ring_pos = np.full(ring_n, -1, np.int64)
+    ready = np.zeros(slots, np.int64)
+    filled = set()
+    lim = min(S, max(n_sig, 0))
+    state = dict(s_t=0)
+
+    def fill(ch):
+        assert ch * chunk < lim and ch not in filled
+        # the first chunks of the three producers go into the empty ring;
+        # later ones wait for the walker's published position
+        assert ch < 3 or (ch + 1) * chunk - ring_n <= state["s_t"], \
+            "the walker waits for a chunk that may not be filled yet"
+        pos = np.arange(ch * chunk, min((ch + 1) * chunk, lim))
+        ring[pos & mask] = y[pos]
+        ring_pos[pos & mask] = pos
+        ready[ch % slots] = ch + 1
+        filled.add(ch)
+
+    def fill_allowed():
+        ch = 0
+        while ch * chunk < lim:
+            if ch not in filled and (
+                    ch < 3 or (ch + 1) * chunk - ring_n <= state["s_t"]):
+                fill(ch)
+            ch += 1
+
+    marks = np.zeros(m_max, np.int32)
+    flags = np.zeros(m_max, f32)
+    stats = dict(empty=0, ties=0, clamped=0, max_reach=0, waits=0)
+    fr_max = min(max(n_frames - 1, 0), T - 1)
+    divider = K4.frame_divider(frame_step, S)
+    t, nm, run_len, prev, ready_upto = 0, 0, 0, -1, 0
+    if eager:
+        fill_allowed()
+    while True:
+        if divider:
+            fr = (t * divider[0]) >> (32 + divider[1])
+        else:
+            fr = max(int(f32(t) / c["frame_step"]), 0)
+        fr = min(fr, fr_max)
+        is_voi = bool(is_voi_t[fr])
+        wide = run_len < c["onset_marks"]
+        p_lo = int(tab["lo_wide" if wide else "lo_run"][fr])
+        p_hi = int(tab["hi_wide" if wide else "hi_run"][fr])
+        lo = t + p_lo
+        hi = min(n_sig - 1, t + p_hi)
+        if is_voi:
+            lo_slice = min(lo, S - snap_w)
+            hi_read = min(hi, lo_slice + snap_w)
+            stats["clamped"] += lo_slice < lo
+            if hi_read > lo:
+                ready_upto = max(ready_upto, lo & ~(chunk - 1))
+                while hi_read > ready_upto:
+                    ch = ready_upto // chunk
+                    if ready[ch % slots] != ch + 1:
+                        stats["waits"] += 1
+                        fill(ch)
+                    ready_upto += chunk
+            else:
+                stats["empty"] += 1
+            best = np.full(32, np.inf, f32)
+            best_pos = np.full(32, lo_slice, np.int64)
+            for pos in range(lo, hi_read):
+                assert t <= pos < t + reach, "a read outside [t, t + reach)"
+                assert ring_pos[pos & mask] == pos, "a stale ring slot"
+                lane = (pos - lo) % 32
+                v = ring[pos & mask]
+                if v < best[lane]:
+                    best[lane], best_pos[lane] = v, pos
+            stats["max_reach"] = max(stats["max_reach"], hi_read - t)
+            key = _order_key(best)
+            holders = best_pos[key == key.min()]
+            stats["ties"] += len(holders) > 1 and hi_read > lo
+            nxt = int(holders.min())
+        else:
+            nxt = t + c["unv_step"]
+        min_adv = max(1, p_lo) if is_voi else 1
+        if nxt <= prev:
+            nxt = prev + min_adv
+        if not (nxt < n_sig - 1 and hi > lo + 1 and nm < m_max):
+            break
+        marks[nm], flags[nm] = nxt, f32(is_voi)
+        nm += 1
+        prev = t = nxt
+        state["s_t"] = nxt
+        run_len = run_len + 1 if is_voi else 0
+        if eager:
+            fill_allowed()
+    return marks, flags, nm, stats
+
+
+def _synthetic_walk_case(name):
+    """(y, f0, voiced, n_sigs, n_frames) at 48 kHz, S = 32768 (twice the
+    ring), voiced throughout, and the event the case must show."""
+    rng = np.random.default_rng(12)
+    S, T, fs = 32768, 160, 48000
+    f0 = np.full((2, T), 120.0, np.float32)
+    f0[1] = np.linspace(60.0, 390.0, T)
+    voiced = np.ones((2, T), np.float32)
+    y = rng.standard_normal((2, S)).astype(np.float32)
+    n_sigs = np.asarray([S - 3000, S - 5000], np.int32)
+    if name == "ties":
+        # three levels and zeros of both signs: most windows tie
+        y = np.round(y).clip(-1, 1)
+        y[0] = np.where(y[0] < 0, np.float32(-0.0), np.abs(y[0]))
+        y[0, ::7] = 0.0
+        event = "ties"
+    elif name == "empty_span":
+        # the last window starts at or beyond n_sig - 1
+        n_sigs = np.asarray([20000, 9001], np.int32)
+        y[:, ::3] -= 4.0
+        event = "empty"
+    else:                                   # "n_sig_near_S"
+        n_sigs = np.asarray([S, S - 1], np.int32)
+        event = "clamped"
+    n_frames = np.minimum(n_sigs // 240 + 1, T).astype(np.int32)
+    return (y, f0, voiced, n_sigs, n_frames), fs, event
+
+
+@pytest.mark.parametrize("eager", [False, True], ids=["late", "ahead"])
+@pytest.mark.parametrize("case", ["voiced_unvoiced", "noise_and_silence",
+                                  "capacity_hit", "16k", "ties", "empty_span",
+                                  "n_sig_near_S"])
+def test_walk_ring_model_matches_plain(case, eager):
+    """The walk as the CUDA kernel schedules it (``_walk_model``) gives
+    walk_plain's marks, flags and n_marks bit for bit, with the producers
+    as late and as far ahead as the protocol lets them be; no read leaves
+    [t, t + reach), no slot is read stale, and the walker never waits for a
+    chunk that the refill threshold forbids."""
+    event = None
+    if case in _walk_cases():
+        signals, fs, m_cap = _walk_cases()[case]
+        arrs, m_max = _walk_inputs(signals, fs)
+        m_max = m_cap or m_max
+    else:
+        arrs, fs, event = _synthetic_walk_case(case)
+        m_max = tpd.placement_m_max(arrs[0].shape[1], fs)
+    kw = dict(fs=fs, m_max=m_max, frame_step=tpd._walk_frame_step(fs),
+              snap_w=tpd._snap_win(fs))
+    ref = [r.numpy() for r in K4.walk_plain(
+        *(torch.from_numpy(np.array(a)) for a in arrs), **kw)]
+    seen = dict(empty=0, ties=0, clamped=0, max_reach=0, waits=0)
+    for b in range(arrs[0].shape[0]):
+        marks, flags, nm, stats = _walk_model(*(a[b] for a in arrs), **kw,
+                                              eager=eager)
+        assert nm == ref[2][b]
+        np.testing.assert_array_equal(marks, ref[0][b])
+        np.testing.assert_array_equal(flags, ref[1][b])
+        for k, v in stats.items():
+            seen[k] = max(seen[k], v)
+    assert seen["max_reach"] <= K4.ring_geometry(fs)["reach"]
+    assert seen["waits"] == 0 if eager else seen["waits"] > 0 or \
+        case == "noise_and_silence"
+    if event:
+        assert seen[event] > 0, f"the case shows no {event} event"
+
+
+@pytest.mark.parametrize("fs", [8000, 16000, 22050, 44100, 48000, 96000])
+def test_walk_ring_holds_a_window_and_a_chunk(fs):
+    """The ring is a power of two, a whole number of chunks the kernel has
+    ready slots for, holds the producers' first three chunks, and leaves
+    room for the chunk under the far end of any window to be filled while
+    the walker stands at t: reach + chunk <= ring."""
+    g = K4.ring_geometry(fs)
+    assert g["ring"] & (g["ring"] - 1) == 0
+    assert 4 * g["chunk"] <= g["ring"] <= K4.MAX_CHUNKS * g["chunk"]
+    assert g["reach"] + g["chunk"] <= g["ring"]
+    assert g["reach"] >= tpd._snap_win(fs) - 128
+
+
+@pytest.mark.parametrize("step", [2, 3, 80, 160, 222, 240, 441, 480, 4096,
+                                  99991])
+def test_walk_frame_divider_is_the_float32_division(step):
+    """The kernel's multiply-high frame index equals the truncated float32
+    quotient, as numpy and the plain walk divide, for every position up to
+    the largest S the divider accepts; and the divider refuses a step that
+    is no integer, a step below 2 and rows too long for the argument."""
+    S_top = 2 ** 24 - step - 1
+    magic, shift = K4.frame_divider(float(step), S_top)
+    assert 0 < magic < 2 ** 32 and 0 <= shift < 32
+    t = np.arange(S_top + 1, dtype=np.uint64)
+    got = (t * np.uint64(magic)) >> np.uint64(32 + shift)
+    ref = (t.astype(np.float32) / np.float32(step)).astype(np.int64)
+    np.testing.assert_array_equal(got.astype(np.int64), ref)
+    assert K4.frame_divider(float(step), S_top + 1) is None
+    assert K4.frame_divider(step + 0.5, 1000) is None
+    assert K4.frame_divider(1.0, 1000) is None
+
+
+# K1's row split: rows of (L, R) that put the boundaries of the right
+# half, the zero span and the left half inside quads, on quad edges, make
+# the zero span empty, or leave the kernel's fast path
+_ROW_CASES = {
+    "typical": (100, 130), "L0": (0, 50), "R0": (100, 0), "L0_R0": (0, 0),
+    "straddle": (101, 6), "on_quad_edges": (128, 127),
+    "no_zero_span": (300, 300), "exactly_full": (255, 256),
+    "L_is_N_minus_1": (511, 3), "L_is_N": (512, 10), "L_negative": (-3, 40),
+    "R_negative": (40, -2),
+}
+
+
+def _row_case_inputs(seed):
+    """(sig, pm, L, R, voi, nfrms, n_sig) for two utterances whose frames
+    are the rows of ``_ROW_CASES`` and two ordinary rows, which lie past
+    nfrms in the first utterance; the second signal ends early."""
+    rng = np.random.default_rng(seed)
+    rows = list(_ROW_CASES.values())
+    Fr = len(rows) + 2
+    L = np.full((2, Fr), 90, np.int32)
+    R = np.full((2, Fr), 80, np.int32)
+    L[:, :len(rows)] = [r[0] for r in rows]
+    R[:, :len(rows)] = [r[1] for r in rows]
+    return (rng.standard_normal((2, S)).astype(np.float32),
+            np.stack([np.linspace(40, S - 200, Fr),
+                      np.linspace(5, 3000, Fr)]).astype(np.int32), L, R,
+            (rng.random((2, Fr)) > 0.5).astype(np.float32),
+            np.asarray([len(rows), Fr], np.int32),
+            np.asarray([S, 2500], np.int32))
+
+
+def _frames_row_model(sig_row, pm, L, R, ns, n, fam, live):
+    """One output row as csrc/framing.cu writes it: quads when n % 4 == 0
+    (a quad wholly in the zero span or in a dead row stored as zeros with no
+    arithmetic), single elements else; q by one conditional subtraction on
+    the fast path, by the double modulo on the general one.  Returns the
+    row and the number of elements it did arithmetic for."""
+    wraps_once = live and 0 <= L < n and R >= 0
+    p = np.arange(n)
+    computed = np.full(n, live)
+    if n % 4 == 0 and live and wraps_once:
+        p0 = p - p % 4
+        computed = ~((p0 > R) & (p0 + 3 < n - L))
+    if wraps_once:
+        q = p + L
+        q = np.where(q >= n, q - n, q)
+        assert np.all((0 <= q) & (q < n))
+    else:
+        q = ((p + L) % n + n) % n
+    in_frame = computed & (q < L + R + 1)
+    idx = np.minimum(np.maximum(pm - L + q, 0), ns - 1)
+    win = tW.asym_win_value(torch.from_numpy(q), torch.tensor(L),
+                            torch.tensor(R), fam).numpy()
+    row = np.where(in_frame, sig_row[idx] * win, np.float32(0.0))
+    return row.astype(np.float32), int(computed.sum())
+
+
+@pytest.mark.parametrize("n", [512, 510])
+@pytest.mark.parametrize("fams", FAMILIES)
+def test_frames_row_split_model_matches_plain(fams, n):
+    """The row split of the CUDA K1 (``_frames_row_model``) is bitwise
+    frames_plain for every row case and window family, for quads
+    (n % 4 == 0) and single elements, with a row past nfrms; and the fast
+    path does arithmetic for no more than the frame's support rounded out
+    to quads."""
+    arrs = _row_case_inputs(13)
+    sig, pm, L, R, voi, nfrms, n_sig = arrs
+    Fr = L.shape[1]
+    ref = K.frames_plain(*(torch.from_numpy(a) for a in arrs), fft_len=n,
+                         fam_voiced=fams[0], fam_unvoiced=fams[1]).numpy()
+    for b in range(2):
+        for f in range(Fr):
+            live = f < nfrms[b]
+            fam = fams[0] if voi[b, f] > 0 else fams[1]
+            row, n_comp = _frames_row_model(
+                sig[b], int(pm[b, f]), int(L[b, f]), int(R[b, f]),
+                min(int(n_sig[b]), S), n, fam, live)
+            np.testing.assert_array_equal(row, ref[b, f], err_msg=f"{b},{f}")
+            lf, rf = int(L[b, f]), int(R[b, f])
+            if not live:
+                assert not row.any()
+            elif n % 4 == 0 and 0 <= lf < n and rf >= 0:
+                assert n_comp <= min(n, lf + rf + 1 + 2 * 3)
