@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -124,12 +125,14 @@ def log(msg: str) -> None:
 def ptxas_report(build_log: str) -> list:
     """One entry per kernel of ptxas -v's report: registers, stack frame,
     spills and static shared memory, under the kernel's name and template
-    argument."""
+    arguments."""
     out, name, spill = [], "?", []
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:IL[ib](\d+)E)?", ln)
-            name = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
+            m = re.search(r"\d+((?:[a-z]+_)*kernel)(?:I((?:L[ib]\d+E)+))?",
+                          ln)
+            targs = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
+            name = (f"{m.group(1)}<{','.join(targs)}>" if targs
                     else m.group(1) if m else ln.split("'")[1])
         elif "spill stores" in ln:
             spill = re.findall(r"(\d+) bytes (?:stack|spill)", ln)
@@ -153,18 +156,10 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() over ``reps`` calls, by CUDA events.  A
-    run of 256 MB fills (~0.09 ms each) is queued first, so that the host
-    enqueues the calls while the card is still busy: the events then time
-    the card's work and not the host's launch rate, which a kernel of
-    some 0.06 ms would otherwise be held to.  The buffer lives only for
-    this call, so no request's peak memory counts it."""
-    headstart = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    """Mean device time of fn() over ``reps`` calls, by CUDA events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(reps):
-        headstart.zero_()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -443,16 +438,52 @@ def walk_work(f0, n_sigs, n_frames, marks, flags, n_marks, fs: int,
 CHAIN_PROBE_STEPS = 61200
 
 
-def walk_chain_ns(dev, frame_step: float, S: int) -> float:
-    """ns per step of the walk's dependent skeleton alone (one warp, its
-    data in shared memory: the frame index as K4 takes it for rows of S
-    samples, a table word, a window read, the key, two redux), by the probe
-    kernel of csrc/walk.cu: what a step of K4 cannot go below on this
-    card."""
+def walk_chain_ns(dev, frame_step: float, S: int):
+    """(ns, SM cycles) per step of the walk's dependent skeleton alone (one
+    warp, its data in shared memory: the frame index as K4 takes it for
+    rows of S samples, a table word, a window read, the key, two redux),
+    by the probe kernel of csrc/walk.cu: what a step of K4 cannot go below
+    on this card.  The ns are CUDA events around whole launches, the
+    cycles the probe's own clock64 around its loop."""
     from magphase_tpu_torch.kernels import walk as K4
     ms = cuda_ms(lambda: K4.chain_probe(CHAIN_PROBE_STEPS, frame_step, S,
                                         dev), reps=5, warmup=1)
-    return ms * 1e6 / CHAIN_PROBE_STEPS
+    cycles = int(K4.chain_probe(CHAIN_PROBE_STEPS, frame_step, S, dev)[1])
+    return ms * 1e6 / CHAIN_PROBE_STEPS, cycles / CHAIN_PROBE_STEPS
+
+
+def probe_sass(library: str, nvcc: str) -> str:
+    """The SASS size of the chain probe's step in the built library, by
+    cuobjdump: the instructions of the largest loop of
+    chain_probe_kernel<true> (a backward branch and everything from its
+    target on), the REDUX among them (two a step, so the loop's steps) and
+    the instructions per step.  cuobjdump is looked for beside ``nvcc``."""
+    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc),
+                                                    "cuobjdump")
+    if not os.path.isfile(exe):
+        return "cuobjdump not found: SASS not counted"
+    sass = subprocess.run([exe, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body = re.search(r"Function : \w*chain_probe_kernelILb1E\w*\n(.*?)"
+                     r"(?=\n\s*Function :|\Z)", sass, re.S)
+    if body is None:
+        return "chain_probe_kernel<true> not in cuobjdump's listing"
+    body = body.group(1)
+    ins = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4})\*/\s+([^;]+);", body)]
+    loops = []
+    for addr, op in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append([o for a, o in ins
+                          if int(m.group(1), 16) <= a <= addr])
+    loops = [lp for lp in loops if any("REDUX" in o for o in lp)]
+    if not loops:
+        return f"{len(ins)} instructions, no loop with REDUX recognised"
+    loop = max(loops, key=len)
+    redux = sum("REDUX" in o for o in loop)
+    return (f"{len(ins)} instructions, the loop {len(loop)} with {redux} "
+            f"REDUX: {len(loop) / (redux / 2):.1f} instructions per step")
 
 
 def period_errors(marks, flags, n_marks, true_marks, true_vois):
@@ -1166,10 +1197,10 @@ def main() -> None:
     # ends it) times the probe's time per step of the dependent skeleton.
     bytes_bnd = bound(4 * samples + 8 * steps + nbytes(t_nsig, t_nfrm, *got),
                       2 * samples)
-    chain_ns = walk_chain_ns(dev, fstep, S_a)
+    chain_ns, chain_cycles = walk_chain_ns(dev, fstep, S_a)
     # the same skeleton with the IEEE division that a frame step that is
     # no integer takes (no path of this run does)
-    chain_ns_fdiv = walk_chain_ns(dev, fstep + 0.5, S_a)
+    chain_ns_fdiv, _ = walk_chain_ns(dev, fstep + 0.5, S_a)
     chain_ms = (n_max_marks + 1) * chain_ns * 1e-6
     bnd = (chain_ms, "chain") if chain_ms >= bytes_bnd[0] else bytes_bnd
     results["walk"] = dict(
@@ -1183,14 +1214,15 @@ def main() -> None:
         f"m_max={m_max_a} snap_w={pd._snap_win(FS)}: bitwise equal to plain; "
         f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms; longest walk "
         f"{n_max_marks} marks, {r['ms'] * 1e3 / n_max_marks:.4f} us per step "
-        f"of it; chain probe {chain_ns:.2f} ns per step "
-        f"({CHAIN_PROBE_STEPS} steps; {chain_ns_fdiv:.2f} with the float "
-        f"division), bound {r['bound_ms']:.6f} ms "
+        f"of it; chain probe {chain_ns:.2f} ns, {chain_cycles:.2f} SM cycles "
+        f"per step ({CHAIN_PROBE_STEPS} steps; {chain_ns_fdiv:.2f} ns with "
+        f"the float division), bound {r['bound_ms']:.6f} ms "
         f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of it reached; "
         f"bytes bound {bytes_bnd[0]:.6f} ms ({bytes_bnd[1]}; {samples} window"
         f" samples, {steps} steps)")
     log(f"[kernels] K4 launch shape: ring {K4.ring_geometry(FS)}, "
-        f"{K4.kernel_occupancy(FS, Tmax_a)}")
+        f"{K4.kernel_occupancy(FS, Tmax_a)}; chain probe SASS: "
+        f"{probe_sass(infos['walk']['path'], _build.find_nvcc())}")
 
     # K5 against its plain version: the forward on the K1 frames of this
     # analysis group at its realised frame bucket, the inverse at the

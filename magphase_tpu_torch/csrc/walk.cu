@@ -19,7 +19,10 @@
 // can off that warp's step:
 //
 // - No global memory on the chain.  The block first turns its f0/voiced
-//   rows into a table in shared memory, one entry per tracker frame: the
+//   rows into a table in shared memory, one entry per tracker frame (in a
+//   scratch row of global memory instead, kTabShared false, where the
+//   table of a very long utterance does not fit beside the ring: the step
+//   then reads its word through L1): the
 //   window offsets floor(lo_mult * period) and floor(hi_mult * period) of
 //   both window phases and the voiced bit.  These are the walk's own
 //   float32 operations (__fdiv_rn, fminf, __fmul_rn, floorf), done once
@@ -30,8 +33,10 @@
 //   floor(hi_wide * p_max) samples beyond t, so the ring (a power-of-two
 //   number of samples, position mod ring length) needs to hold only
 //   [t, t + ring).  Three producer warps copy the row in chunks of kChunk
-//   samples with cp.async (16 bytes a lane where the row is 16-byte
-//   aligned, else 4), chunk c by warp 1 + c % 3.  A producer may fill
+//   samples with cp.async, 16 bytes a lane (rows start 16-byte aligned and
+//   lie `pitch` samples apart, a multiple of 4: the wrapper copies a batch
+//   that is not so into one that is), chunk c by warp 1 + c % 3.  A
+//   producer may fill
 //   chunk c once (c + 1) * kChunk - ring <= the walker's published t (it
 //   overwrites nothing at or beyond t), and publishes c + 1 in the
 //   chunk's slot of s_ready; the walker waits on that number before the
@@ -63,6 +68,9 @@
 // the key, two redux and the guards.  chain_probe_kernel below runs the
 // skeleton alone (frame index, table word, one window read, key, two
 // redux) and gives the card's time per step of it: the walk's own bound.
+// The probe's loop is part of the yardstick: K4's bound and its share of
+// it are read against this body, so an edit of it is a change of the
+// measure, after which every figure of K4 is read anew.
 //
 // Exactness: the float steps are the JAX walk's float32 operations, each
 // rounded on its own: __fdiv_rn for t/frame_step and fs/max(f0, 1),
@@ -89,7 +97,7 @@ constexpr int kMaxChunks = 16;  // ring <= 32,768 samples
 constexpr int kTrips = 4;       // window trips of 32 lanes loaded at once
 
 struct WalkParams {
-  int B, S, T, m_max, snap_w, unv_step, onset_marks, ring_log2, aligned16;
+  int B, S, pitch, T, m_max, snap_w, unv_step, onset_marks, ring_log2;
   unsigned step_magic;
   int step_shift;
   float frame_step, fs, p_max, lo_wide, hi_wide, lo_run, hi_run;
@@ -114,12 +122,6 @@ __device__ __forceinline__ int frame_of(int t, const WalkParams& p) {
 __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(__fadd_rn(v, 0.0f));
   return u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -150,29 +152,27 @@ __device__ __forceinline__ uint2 step_entry(float f0v, float vv,
                     lo_r | voi_bit | (hi_r << 16));
 }
 
-// Copy chunk c of the row, cut to `lim` samples, into its place in the ring.
+// Copy chunk c of the row, cut to `lim` samples (a multiple of 4), into
+// its place in the ring.
 __device__ __forceinline__ void copy_chunk(float* ring, int mask,
                                             const float* y, int c, int lim,
-                                            int lane, bool aligned16) {
+                                            int lane) {
   const int base = c << kChunkLog2;
   const int n = min(kChunk, lim - base);
-  if (aligned16) {
-    for (int i = lane * 4; i < n; i += 128)
-      cp_async16(ring + ((base + i) & mask), y + base + i);
-  } else {
-    for (int i = lane; i < n; i += 32)
-      cp_async4(ring + ((base + i) & mask), y + base + i);
-  }
+  for (int i = lane * 4; i < n; i += 128)
+    cp_async16(ring + ((base + i) & mask), y + base + i);
 }
 
-template <bool kIntStep>
+// kTabShared: the frame table lies in shared memory behind the ring, else
+// in row b of tab_global (B x T entries of scratch).
+template <bool kIntStep, bool kTabShared>
 __global__ void __launch_bounds__(kThreads)
     walk_kernel(const float* __restrict__ y_snap, const float* __restrict__ f0,
                 const float* __restrict__ voiced,
                 const int* __restrict__ n_sigs,
                 const int* __restrict__ n_frames, int* __restrict__ marks,
                 float* __restrict__ flags, int* __restrict__ n_marks,
-                WalkParams p) {
+                uint2* tab_global, WalkParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ volatile int s_t;     // the walker's position: nothing below it
                                    // is read again
@@ -188,23 +188,23 @@ __global__ void __launch_bounds__(kThreads)
   const int mask = ring_n - 1;
   const int slots = ring_n >> kChunkLog2;
   float* ring = reinterpret_cast<float*>(smem);
-  uint2* tab = reinterpret_cast<uint2*>(ring + ring_n);
+  uint2* tab = kTabShared ? reinterpret_cast<uint2*>(ring + ring_n)
+                          : tab_global + (int64_t)b * p.T;
 
-  const float* y = y_snap + (int64_t)b * p.S;
+  const float* y = y_snap + (int64_t)b * p.pitch;
   const float* f0b = f0 + (int64_t)b * p.T;
   const float* vb = voiced + (int64_t)b * p.T;
   int* mk = marks + (int64_t)b * p.m_max;
   float* fl = flags + (int64_t)b * p.m_max;
   const int n_sig = n_sigs[b];
-  // no window reaches position n_sig - 1 or beyond
-  const int lim = min(p.S, p.aligned16 ? ((max(n_sig, 0) + 3) & ~3)
-                                       : max(n_sig, 0));
+  // no window reaches position n_sig - 1 or beyond, nor S
+  const int lim = min(p.pitch, (max(n_sig, 0) + 3) & ~3);
 
   // the producers' first chunks fit the empty ring: start them before
   // anything else
   int c = warp - 1;
   if (warp > 0 && (c << kChunkLog2) < lim)
-    copy_chunk(ring, mask, y, c, lim, lane, p.aligned16);
+    copy_chunk(ring, mask, y, c, lim, lane);
   for (int i = tid; i < p.T; i += kThreads)
     tab[i] = step_entry(f0b[i], vb[i], p);
   if (tid < kMaxChunks) s_ready[tid] = 0;
@@ -337,7 +337,7 @@ __global__ void __launch_bounds__(kThreads)
         }
         // one verdict for the warp: the lanes read s_t at different times
         if (!__all_sync(kFull, room)) break;
-        copy_chunk(ring, mask, y, c, lim, lane, p.aligned16);
+        copy_chunk(ring, mask, y, c, lim, lane);
       }
       first = false;
       cp_async_wait_all();
@@ -364,7 +364,8 @@ __global__ void __launch_bounds__(kThreads)
 // resident in shared memory: the frame of t (frame_of), the clamp, one
 // word of the table, one window read per lane, the key, two redux.
 // `steps` steps, each starting where the last one ended.  Its time per
-// step is the least a step of walk_kernel can take on this card.
+// step is the least a step of walk_kernel can take on this card; out[0]
+// gets the final position and out[1] the SM cycles the loop took.
 constexpr int kProbeRing = 4096;
 constexpr int kProbeFrames = 1024;
 
@@ -382,6 +383,7 @@ __global__ void chain_probe_kernel(int steps, WalkParams p,
   }
   __syncwarp();
   int t = 0;
+  const long long c0 = clock64();
   for (int s = 0; s < steps; ++s) {
     const int fr = min(frame_of<kIntStep>(t, p), kProbeFrames - 1);
     const int pos = t + (int)(tab[fr] & 0x7fffu) + lane;
@@ -390,7 +392,11 @@ __global__ void chain_probe_kernel(int steps, WalkParams p,
     t = (int)__reduce_min_sync(kFull,
                                key == kmin ? (unsigned)pos : 0xffffffffu);
   }
-  if (lane == 0) *out = t;
+  const long long c1 = clock64();
+  if (lane == 0) {
+    out[0] = t;
+    out[1] = (int)min(c1 - c0, (long long)INT32_MAX);
+  }
 }
 
 // the ring holds the producers' first chunks at least, and has a slot of
@@ -400,8 +406,12 @@ bool ring_ok(int ring_log2) {
   return ring_log2 >= kChunkLog2 + 2 && ring_log2 <= kChunkLog2 + 4;
 }
 
+int ring_bytes(int ring_log2) {
+  return (1 << ring_log2) * (int)sizeof(float);
+}
+
 int smem_bytes(int ring_log2, int T) {
-  return (1 << ring_log2) * (int)sizeof(float) + T * (int)sizeof(uint2);
+  return ring_bytes(ring_log2) + T * (int)sizeof(uint2);
 }
 
 }  // namespace
@@ -411,49 +421,79 @@ extern "C" {
 // step_magic/step_shift: the frame index as
 // umulhi(t, step_magic) >> step_shift where the host found that exact
 // (kernels/walk.py: frame_divider), step_magic == 0 for the float division.
+// Rows of y_snap start 16-byte aligned, `pitch` samples apart (a multiple
+// of 4, >= S).  tab_global: null for the frame table in shared memory, else
+// B x T x 8 bytes of scratch for it (T beyond mp_walk_max_shared_frames).
 int mp_walk(const float* y_snap, const float* f0, const float* voiced,
             const int* n_sigs, const int* n_frames, int* marks, float* flags,
-            int* n_marks, int B, int S, int T, int m_max, int snap_w,
-            int unv_step, int onset_marks, int ring_log2,
+            int* n_marks, void* tab_global, int B, int S, int pitch, int T,
+            int m_max, int snap_w, int unv_step, int onset_marks, int ring_log2,
             unsigned step_magic, int step_shift, float frame_step, float fs,
             float p_max, float lo_wide, float hi_wide, float lo_run,
             float hi_run, void* stream) {
-  if (!ring_ok(ring_log2)) return (int)cudaErrorInvalidValue;
+  if (!ring_ok(ring_log2) || (uintptr_t)y_snap % 16 != 0 || pitch % 4 != 0 ||
+      pitch < S)
+    return (int)cudaErrorInvalidValue;
   if (B > 0) {
-    const int aligned16 = ((uintptr_t)y_snap % 16 == 0) && (S % 4 == 0);
-    WalkParams p{B,         S,          T,           m_max,
-                 snap_w,    unv_step,   onset_marks, ring_log2,
-                 aligned16, step_magic, step_shift,  frame_step,
-                 fs,        p_max,      lo_wide,     hi_wide,
-                 lo_run,    hi_run};
-    auto kernel = step_magic ? walk_kernel<true> : walk_kernel<false>;
-    const int smem = smem_bytes(ring_log2, T);
+    WalkParams p{B,          S,           pitch,     T,          m_max,
+                 snap_w,     unv_step,    onset_marks, ring_log2,
+                 step_magic, step_shift,  frame_step, fs,        p_max,
+                 lo_wide,    hi_wide,     lo_run,    hi_run};
+    auto kernel =
+        tab_global ? (step_magic ? walk_kernel<true, false>
+                                 : walk_kernel<false, false>)
+                   : (step_magic ? walk_kernel<true, true>
+                                 : walk_kernel<false, true>);
+    const int smem =
+        tab_global ? ring_bytes(ring_log2) : smem_bytes(ring_log2, T);
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        y_snap, f0, voiced, n_sigs, n_frames, marks, flags, n_marks, p);
+        y_snap, f0, voiced, n_sigs, n_frames, marks, flags, n_marks,
+        static_cast<uint2*>(tab_global), p);
   }
   return (int)cudaGetLastError();
 }
 
-// out[3] = threads per block, dynamic shared memory bytes, resident blocks
-// per SM, of walk_kernel with this ring and T tracker frames
-int mp_walk_occupancy(int ring_log2, int T, int* out) {
+// *out = the most tracker frames whose table the current card lets a block
+// keep in shared memory beside this ring
+int mp_walk_max_shared_frames(int ring_log2, int* out) {
   if (!ring_ok(ring_log2)) return (int)cudaErrorInvalidValue;
-  const int smem = smem_bytes(ring_log2, T);
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, walk_kernel<true, true>);
+  if (e != cudaSuccess) return (int)e;
+  const int room = optin - (int)attr.sharedSizeBytes - ring_bytes(ring_log2);
+  *out = room > 0 ? room / (int)sizeof(uint2) : 0;
+  return (int)cudaSuccess;
+}
+
+// out[3] = threads per block, dynamic shared memory bytes, resident blocks
+// per SM, of walk_kernel with this ring and T tracker frames, the table in
+// shared memory where in_shared is set
+int mp_walk_occupancy(int ring_log2, int T, int in_shared, int* out) {
+  if (!ring_ok(ring_log2)) return (int)cudaErrorInvalidValue;
+  auto kernel = in_shared ? walk_kernel<true, true> : walk_kernel<true, false>;
+  const int smem = in_shared ? smem_bytes(ring_log2, T) : ring_bytes(ring_log2);
   cudaError_t e = cudaFuncSetAttribute(
-      walk_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = kThreads;
   out[1] = smem;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out + 2, walk_kernel<true>, kThreads, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel,
+                                                            kThreads, smem);
 }
 
 // One warp runs `steps` steps of the walk's dependent skeleton, with the
-// frame index taken as mp_walk takes it for these arguments; *out gets the
-// final position (so that nothing is optimised away).
+// frame index taken as mp_walk takes it for these arguments; out[2] gets
+// the final position (so that nothing is optimised away) and the SM cycles
+// of the loop.
 int mp_walk_chain_probe(int steps, unsigned step_magic, int step_shift,
                         float frame_step, int* out, void* stream) {
   WalkParams p{};

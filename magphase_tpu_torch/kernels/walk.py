@@ -11,7 +11,8 @@ mark starts the next window), so its time is marks x the latency of one
 step, not bytes and not operations.  One block walks one utterance and
 keeps global memory off that chain: the tracks become a per-frame table
 of window offsets in shared memory (the walk's own float32 operations,
-done once per frame), three producer warps keep a ring of the signal in
+done once per frame; in a scratch row of global memory where a very long
+utterance's table does not fit beside the ring), three producer warps keep a ring of the signal in
 shared memory ahead of the one walker warp (``ring_geometry``), the
 walker reads only the searched span, the minimum is two ``redux``
 instructions on an order-preserving integer key, and the frame index is
@@ -181,10 +182,12 @@ def walk_plain(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mp_walk.argtypes = ([ptr] * 8 + [i32] * 8 + [ctypes.c_uint, i32]
+    lib.mp_walk.argtypes = ([ptr] * 9 + [i32] * 9 + [ctypes.c_uint, i32]
                             + [f32] * 7 + [ptr])
     lib.mp_walk.restype = i32
-    lib.mp_walk_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.mp_walk_max_shared_frames.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.mp_walk_max_shared_frames.restype = i32
+    lib.mp_walk_occupancy.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
     lib.mp_walk_occupancy.restype = i32
     lib.mp_walk_chain_probe.argtypes = [i32, ctypes.c_uint, i32, f32, ptr,
                                         ptr]
@@ -192,19 +195,52 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def kernel_occupancy(fs: int, T: int) -> dict:
-    """The kernel's launch shape on the current card for sampling rate
-    ``fs`` and T tracker frames: threads per block, dynamic shared memory
-    per block (the ring and the frame table) and the blocks the card keeps
-    resident on one SM."""
+def _call(fn_name: str, device: torch.device, *args) -> None:
+    """A C entry point that launches nothing, on ``device``."""
     lib = _library()
-    out = (ctypes.c_int * 3)()
-    rc = lib.mp_walk_occupancy(ring_geometry(fs)["ring"].bit_length() - 1,
-                               int(T), out)
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn_name)(*args)
     if rc != 0:
-        raise RuntimeError(f"mp_walk_occupancy: CUDA error {rc}: "
+        raise RuntimeError(f"{fn_name}: CUDA error {rc}: "
                            f"{lib.mp_error_string(rc).decode()}")
-    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), out))
+
+
+@functools.lru_cache(maxsize=None)
+def max_shared_frames(device: torch.device, ring_log2: int) -> int:
+    """The most tracker frames whose table (8 bytes a frame) the card lets
+    a block keep in shared memory beside the ring; a longer utterance's
+    table goes to global memory."""
+    out = ctypes.c_int()
+    _call("mp_walk_max_shared_frames", device, ring_log2, ctypes.byref(out))
+    return out.value
+
+
+def kernel_occupancy(fs: int, T: int, device="cuda") -> dict:
+    """The kernel's launch shape on the card for sampling rate ``fs`` and
+    T tracker frames: threads per block, dynamic shared memory per block
+    (the ring, and the frame table where it fits there), the blocks the
+    card keeps resident on one SM and whether the table is in shared
+    memory."""
+    dev = torch.device(device)
+    ring_log2 = ring_geometry(fs)["ring"].bit_length() - 1
+    in_shared = int(T) <= max_shared_frames(dev, ring_log2)
+    out = (ctypes.c_int * 3)()
+    _call("mp_walk_occupancy", dev, ring_log2, int(T), int(in_shared), out)
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm"), out),
+                table_in_shared=in_shared)
+
+
+def aligned_rows(y_snap: torch.Tensor) -> torch.Tensor:
+    """``y_snap`` (B, S) as the kernel's 16-byte copies need it: rows that
+    start 16-byte aligned, a multiple of 4 samples apart.  The tensor
+    itself where it is so (every batch the package builds: S is bucketed to
+    128), else a zero-padded copy whose first S columns are ``y_snap``."""
+    B, S = y_snap.shape
+    if S % 4 == 0 and y_snap.data_ptr() % 16 == 0:
+        return y_snap
+    padded = y_snap.new_zeros(B, S + (-S) % 4)
+    padded[:, :S] = y_snap
+    return padded
 
 
 def chain_probe(steps: int, frame_step: float, S: int,
@@ -213,13 +249,14 @@ def chain_probe(steps: int, frame_step: float, S: int,
     steps of the walk's dependent skeleton (the frame index as ``walk``
     takes it for rows of S samples, one table word and one window read in
     shared memory, the key, two redux) and nothing else.  Returns the
-    final position (1,) int32.  A measuring tool: no path of the package
-    calls it, and it is not counted as a launch of K4."""
+    (final position, SM cycles of the loop) as (2,) int32.  A measuring
+    tool: no path of the package calls it, and it is not counted as a
+    launch of K4."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"chain_probe: device {dev}; the probe runs on "
                          "CUDA only")
-    out = torch.empty(1, dtype=torch.int32, device=dev)
+    out = torch.empty(2, dtype=torch.int32, device=dev)
     _build.launch(_library(), "mp_walk_chain_probe", dev, int(steps),
                   *(frame_divider(frame_step, S) or (0, 0)),
                   float(np.float32(frame_step)), out.data_ptr())
@@ -234,9 +271,10 @@ def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
     S >= snap_w; f0, voiced (B, T) float32; n_sigs, n_frames (B,) int32.
     Bound on the card: the serial per-mark chain (the frame index, a
     table word, the window's shared-memory reads and two warp reductions
-    per mark), not bytes.  The block keeps 8 bytes per tracker frame and the
-    ring in shared memory; a T beyond what the card grants a block (some
-    20,000 frames, 100 s of signal) is refused by the launch and raises."""
+    per mark), not bytes.  The block keeps the ring and 8 bytes per tracker
+    frame in shared memory; where T is beyond what the card grants a block
+    (``max_shared_frames``: some 20,000 frames, 100 s of signal) the frame
+    table goes to global memory instead."""
     if y_snap.device.type == "cpu":
         return walk_plain(y_snap, f0, voiced, n_sigs, n_frames, fs=fs,
                           m_max=m_max, frame_step=frame_step, snap_w=snap_w)
@@ -255,13 +293,19 @@ def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
     _build.check(n_frames, "n_frames", torch.int32, (B,), dev)
     c = walk_constants(fs, frame_step)
     ring_log2 = ring_geometry(fs)["ring"].bit_length() - 1
+    rows = aligned_rows(y_snap)
+    tab = None
+    if T > max_shared_frames(dev, ring_log2):
+        tab = torch.empty(B, T, 2, dtype=torch.int32, device=dev)
     marks = torch.empty(B, m_max, dtype=torch.int32, device=dev)
     flags = torch.empty(B, m_max, dtype=torch.float32, device=dev)
     n_marks = torch.empty(B, dtype=torch.int32, device=dev)
-    _build.launch(_library(), "mp_walk", dev, y_snap.data_ptr(),
+    _build.launch(_library(), "mp_walk", dev, rows.data_ptr(),
                   f0.data_ptr(), voiced.data_ptr(), n_sigs.data_ptr(),
                   n_frames.data_ptr(), marks.data_ptr(), flags.data_ptr(),
-                  n_marks.data_ptr(), B, S, T, m_max, snap_w, c["unv_step"],
+                  n_marks.data_ptr(), tab.data_ptr() if tab is not None
+                  else None, B, S, rows.shape[1], T, m_max, snap_w,
+                  c["unv_step"],
                   c["onset_marks"], ring_log2,
                   *(frame_divider(frame_step, S) or (0, 0)),
                   *(float(c[k]) for k in ("frame_step", "fs", "p_max",

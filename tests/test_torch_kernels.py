@@ -426,8 +426,9 @@ def test_cuda_walk_kernel_matches_plain_on_synthetic_rows(cuda_device, case):
 def test_cuda_walk_kernel_at_its_smallest_shapes(cuda_device, fs):
     """K4 on the card with S == snap_w, T == 1 and m_max == 1, on a voiced
     and an unvoiced row and one whose signal ends inside the first window;
-    and with a row that is not 16-byte aligned (a view one sample into a
-    longer buffer), which takes the 4-byte copies."""
+    and with rows that are not 16-byte aligned (a view one sample into a
+    longer buffer, S no multiple of 4), which the wrapper copies into
+    aligned ones."""
     rng = np.random.default_rng(14)
     snap_w = tpd._snap_win(fs)
     y = torch.from_numpy(rng.standard_normal((3, snap_w)).astype(np.float32))
@@ -456,6 +457,33 @@ def test_cuda_walk_kernel_at_its_smallest_shapes(cuda_device, fs):
     _assert_walk_kernel_is_plain(
         t, dict(fs=fs, m_max=256, frame_step=tpd._walk_frame_step(fs),
                 snap_w=snap_w))
+
+
+@pytest.mark.cuda
+def test_cuda_walk_kernel_on_an_utterance_beyond_the_shared_table(
+        cuda_device):
+    """K4 on the card on 150 s of signal, T = 30,000 tracker frames: the
+    frame table no longer fits in shared memory beside the ring and lies
+    in global memory; bitwise the plain version all the same, next to a
+    short row of the same batch."""
+    rng = np.random.default_rng(17)
+    fs, T = 48000, 30000
+    step = int(tpd._walk_frame_step(fs))
+    S = T * step
+    ring_log2 = K4.ring_geometry(fs)["ring"].bit_length() - 1
+    assert T > K4.max_shared_frames(cuda_device, ring_log2) >= 640
+    assert not K4.kernel_occupancy(fs, T, cuda_device)["table_in_shared"]
+    y = rng.standard_normal((2, S)).astype(np.float32)
+    f0 = rng.uniform(55.0, 70.0, (2, T)).astype(np.float32)
+    voiced = (rng.random((2, T)) > 0.02).astype(np.float32)
+    n_sig = np.asarray([S - 11, 5 * fs], np.int32)
+    n_frm = (n_sig // step + 1).clip(max=T).astype(np.int32)
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in (y, f0, voiced, n_sig, n_frm)]
+    got = _assert_walk_kernel_is_plain(
+        t, dict(fs=fs, m_max=tpd.placement_m_max(S, fs),
+                frame_step=float(step), snap_w=tpd._snap_win(fs)))
+    assert int(got[2][0]) > 8000 > int(got[2][1]) > 0
 
 
 @pytest.mark.cuda
@@ -722,6 +750,26 @@ def test_walk_ring_model_matches_plain(case, eager):
         case == "noise_and_silence"
     if event:
         assert seen[event] > 0, f"the case shows no {event} event"
+
+
+@pytest.mark.parametrize("S,offset", [(768, 0), (768, 1), (769, 0),
+                                      (770, 2), (771, 4)])
+def test_walk_aligned_rows_keeps_or_copies(S, offset):
+    """The rows the walk kernel copies 16 bytes at a time: the batch itself
+    where its rows start 16-byte aligned a multiple of 4 samples apart,
+    else a copy that is so, with the same first S columns and zeros
+    behind them."""
+    rng = np.random.default_rng(18)
+    buf = torch.from_numpy(rng.standard_normal(3 * S + 8).astype(np.float32))
+    # torch's CPU buffers start 64-byte aligned
+    assert buf.data_ptr() % 16 == 0
+    y = buf[offset:offset + 3 * S].view(3, S)
+    rows = K4.aligned_rows(y)
+    assert rows.data_ptr() % 16 == 0 and rows.shape[1] % 4 == 0
+    assert rows.shape[1] - S in range(4) and rows.is_contiguous()
+    assert torch.equal(rows[:, :S], y)
+    assert not bool(rows[:, S:].any())
+    assert (rows is y) == (S % 4 == 0 and offset % 4 == 0)
 
 
 @pytest.mark.parametrize("fs", [8000, 16000, 22050, 44100, 48000, 96000])
