@@ -5,8 +5,11 @@
 Builds the CUDA kernels from magphase_tpu_torch/csrc (framing.cu: K1-K3,
 walk.cu: K4, dft.cu: K5; one nvcc per source, started together), checks
 each against its plain torch version at the shapes its path gives it (K1
-beside a device fill of its output, K4 beside the chain probe that gives
-the walk's own bound), then
+beside a device fill of its output; K2 also at one copy-synthesis group's
+geometry, K2 and K3 beside the bytes bound of their valid frames alone,
+K3 beside the same call with one-sample windows and its SASS count per
+windowed element; K4 beside the chain probe that gives the walk's own
+bound), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -398,6 +401,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ola_valid_bound(frames, nfrms, *others) -> float:
+    """The bytes bound of an overlap-add over its valid frames alone: the
+    frames f < nfrms[b] read once, the other inputs and the output once
+    (``bound_ms`` counts every frame of the padded (B, F, N) array)."""
+    _, F, N = frames.shape
+    n_valid = int(torch.clamp(nfrms, 0, F).sum())
+    return bound(n_valid * N * frames.element_size() + nbytes(nfrms, *others),
+                 0)[0]
+
+
 def walk_work(f0, n_sigs, n_frames, marks, flags, n_marks, fs: int,
               frame_step: float):
     """What this run's walk needed: (window samples read, steps), from its
@@ -452,38 +465,102 @@ def walk_chain_ns(dev, frame_step: float, S: int):
     return ms * 1e6 / CHAIN_PROBE_STEPS, cycles / CHAIN_PROBE_STEPS
 
 
+def cuobjdump_sass(library: str, nvcc: str):
+    """The SASS listing of a built library by cuobjdump (looked for beside
+    ``nvcc``), None where there is no cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc),
+                                                    "cuobjdump")
+    if not os.path.isfile(exe):
+        return None
+    return subprocess.run([exe, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def sass_function(sass: str, pattern: str):
+    """[(address, instruction)] of the first function whose mangled name
+    matches ``pattern``, None if there is none."""
+    body = re.search(r"Function : \w*" + pattern + r"\w*\n(.*?)"
+                     r"(?=\n\s*Function :|\Z)", sass, re.S)
+    if body is None:
+        return None
+    return [(int(a, 16), op.strip()) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", body.group(1))]
+
+
+def sass_loops(ins) -> list:
+    """Each loop of a function: a backward branch and every instruction
+    from its target on."""
+    loops = []
+    for addr, op in ins:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append([(a, o) for a, o in ins
+                          if int(m.group(1), 16) <= a <= addr])
+    return loops
+
+
 def probe_sass(library: str, nvcc: str) -> str:
     """The SASS size of the chain probe's step in the built library, by
     cuobjdump: the instructions of the largest loop of
     chain_probe_kernel<true> (a backward branch and everything from its
     target on), the REDUX among them (two a step, so the loop's steps) and
-    the instructions per step.  cuobjdump is looked for beside ``nvcc``."""
-    exe = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc),
-                                                    "cuobjdump")
-    if not os.path.isfile(exe):
+    the instructions per step."""
+    sass = cuobjdump_sass(library, nvcc)
+    if sass is None:
         return "cuobjdump not found: SASS not counted"
-    sass = subprocess.run([exe, "-sass", library], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    body = re.search(r"Function : \w*chain_probe_kernelILb1E\w*\n(.*?)"
-                     r"(?=\n\s*Function :|\Z)", sass, re.S)
-    if body is None:
+    ins = sass_function(sass, "chain_probe_kernelILb1E")
+    if ins is None:
         return "chain_probe_kernel<true> not in cuobjdump's listing"
-    body = body.group(1)
-    ins = [(int(a, 16), op) for a, op in re.findall(
-        r"/\*([0-9a-f]{4})\*/\s+([^;]+);", body)]
-    loops = []
-    for addr, op in ins:
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", op)
-        if m and int(m.group(1), 16) <= addr:
-            loops.append([o for a, o in ins
-                          if int(m.group(1), 16) <= a <= addr])
-    loops = [lp for lp in loops if any("REDUX" in o for o in lp)]
+    loops = [lp for lp in sass_loops(ins)
+             if any("REDUX" in o for _, o in lp)]
     if not loops:
         return f"{len(ins)} instructions, no loop with REDUX recognised"
     loop = max(loops, key=len)
-    redux = sum("REDUX" in o for o in loop)
+    redux = sum("REDUX" in o for _, o in loop)
     return (f"{len(ins)} instructions, the loop {len(loop)} with {redux} "
             f"REDUX: {len(loop) / (redux / 2):.1f} instructions per step")
+
+
+def ola_sass(library: str, nvcc: str) -> str:
+    """SASS instructions per element of the OLA kernels' frame loop, by
+    cuobjdump: the smallest loop of ola_kernel<0> (K2) and <1> (K3) that
+    holds four or more global loads, its loads (the elements a pass
+    handles) and, in K3, its window sites (cosf's range check, one per
+    element).  K3's count leaves out its cold paths, which no window value
+    takes: cosf's reduction for |x| >= 105615 (the window's argument is
+    pi t, t in [0, 1]) and the division's call of its slow path (a branch
+    after FCHK and the code up to its target).  The difference of the two
+    counts is the window's cost per windowed element."""
+    sass = cuobjdump_sass(library, nvcc)
+    if sass is None:
+        return "cuobjdump not found: SASS not counted"
+    per_elem, parts = {}, []
+    for kar in (0, 1):
+        ins = sass_function(sass, f"ola_kernelILb{kar}E")
+        loops = [lp for lp in sass_loops(ins or [])
+                 if sum(" LDG" in f" {o}" for _, o in lp) >= 4]
+        if not loops:
+            return f"ola_kernel<{kar}>: no frame loop recognised"
+        loop = min(loops, key=len)
+        cold = []
+        for i, (addr, op) in enumerate(loop):
+            if "105615" in op or op.split()[0] == "FCHK":
+                for a2, o2 in loop[i + 1:i + 12]:
+                    m = re.match(r"@!P\d BRA 0x([0-9a-f]+)", o2)
+                    if m:
+                        cold.append((a2, int(m.group(1), 16)))
+                        break
+        hot = [(a, o) for a, o in loop
+               if not any(c0 < a < c1 for c0, c1 in cold)]
+        loads = sum(" LDG" in f" {o}" for _, o in hot)
+        sites = sum("105615" in o for _, o in loop)
+        per_elem[kar] = len(hot) / loads
+        parts.append(f"ola_kernel<{kar}> {len(ins)} instructions, frame loop "
+                     f"{len(loop)} ({len(loop) - len(hot)} cold) for {loads} "
+                     f"elements and {sites} window sites: "
+                     f"{per_elem[kar]:.1f} hot per element")
+    return "; ".join(parts) + (f"; the window {per_elem[1] - per_elem[0]:.1f}"
+                               " per windowed element")
 
 
 def period_errors(marks, flags, n_marks, true_marks, true_vois):
@@ -666,6 +743,41 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
     if not (s_err <= TOL_ANALYSIS_STREAMS and l_err <= TOL_ANALYSIS_LF0_REL):
         raise AssertionError("CUDA vs CPU analysis features out of bounds")
     return counts
+
+
+def check_ola_copy_geometry(dev, marks, n_marks, O: int, seed: int) -> dict:
+    """K2 at the geometry of one copy-synthesis group: the synthesis frames
+    (B, F, 4096) of that group's marks, centred on them, into its (B, S +
+    16384) output; bitwise against its plain version, timed, with its
+    bytes bound and the bound of its valid frames alone."""
+    from magphase_tpu_torch.kernels import framing as K
+    B, F = marks.shape
+    N = 4096
+    starts = (marks - N // 2).to(torch.int32).contiguous()
+    nfrms = n_marks.to(torch.int32).contiguous()
+    frm = torch.randn(B, F, N, device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed + 1))
+    got = K.ola(frm, starts, nfrms, out_len=O)
+    ref = K.ola_plain(frm, starts, nfrms, out_len=O)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("K2 ola at the copy-synthesis geometry: kernel "
+                             "is not bitwise equal to plain")
+    bnd = bound(nbytes(frm, starts, nfrms, got), frm.numel())
+    r = dict(B=B, F=F, N=N, O=O, max_abs_err=0.0,
+             ms=cuda_ms(lambda: K.ola(frm, starts, nfrms, out_len=O)),
+             plain_ms=cuda_ms(lambda: K.ola_plain(frm, starts, nfrms,
+                                                  out_len=O), reps=3),
+             bound_ms=bnd[0], bound_by=bnd[1],
+             valid_bound_ms=ola_valid_bound(frm, nfrms, starts, got))
+    log(f"[kernels] ola at the copy-synthesis geometry B={B} F={F} N={N} "
+        f"O={O}: bitwise equal to plain; kernel {r['ms']:.4f} ms plain "
+        f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} reached; bound "
+        f"of the {int(nfrms.sum())} valid frames of {B * F} "
+        f"{r['valid_bound_ms']:.4f} ms, {r['valid_bound_ms'] / r['ms']:.1%} "
+        "reached")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1123,7 +1235,8 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: K.ola_plain(frm, starts, s_nfrms,
                                              out_len=O), reps=3),
         bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=cuda_ms(ola_library, reps=5))
+        library_ms=cuda_ms(ola_library, reps=5),
+        valid_bound_ms=ola_valid_bound(frm, s_nfrms, starts, got))
     del flat, frm_flat
     got = K.ola_anti_ring(frm, starts, s_nfrms, wl, wr, out_len=O)
     ref = K.ola_anti_ring_plain(frm, starts, s_nfrms, wl, wr, out_len=O)
@@ -1141,7 +1254,8 @@ def main() -> None:
                                            out_len=O)),
         plain_ms=cuda_ms(lambda: K.ola_anti_ring_plain(
             frm, starts, s_nfrms, wl, wr, out_len=O), reps=3),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        valid_bound_ms=ola_valid_bound(frm, s_nfrms, starts, wl, wr, got))
     for name in ("ola", "ola_anti_ring"):
         r = results[name]
         lib = ("" if r["library_ms"] is None
@@ -1149,8 +1263,24 @@ def main() -> None:
         log(f"[kernels] {name} B={Bs} F={Fs_} N={fft_syn} O={O}: max_abs_err "
             f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
             f"{r['plain_ms']:.4f} ms{lib} bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
-    del got, ref
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} reached; "
+            f"bound of the {int(s_nfrms.sum())} valid frames of {Bs * Fs_} "
+            f"{r['valid_bound_ms']:.4f} ms, {r['valid_bound_ms'] / r['ms']:.1%}"
+            " reached")
+    # what bounds K3: the same call with every window one sample wide (its
+    # division and cosf run on one element per frame), beside K2
+    k3_ms = results["ola_anti_ring"]["ms"]
+    one = torch.zeros_like(wl)
+    k3_one_ms = cuda_ms(lambda: K.ola_anti_ring(frm, starts, s_nfrms, one,
+                                                one, out_len=O))
+    support = float(((wl + wr + 1).clamp(max=fft_syn) * (
+        torch.arange(Fs_, device=dev)[None, :] < s_nfrms[:, None])).sum())
+    log(f"[kernels] K3 window cost: K3 {k3_ms:.4f} ms, K3 with every window "
+        f"one sample wide {k3_one_ms:.4f} ms, K2 {results['ola']['ms']:.4f} "
+        f"ms; the windows cover {support / (int(s_nfrms.sum()) * fft_syn):.1%}"
+        f" of the valid frames' elements; K3 SASS: "
+        f"{ola_sass(infos['framing']['path'], _build.find_nvcc())}")
+    del got, ref, one
 
     # the anti-ringing window and the OLA as one pass (K3) or two (window,
     # then K2), timed at the entry of core/framing.py
@@ -1228,6 +1358,8 @@ def main() -> None:
     # analysis group at its realised frame bucket, the inverse at the
     # 128-utterance serving geometry
     F_a = min(m_max_a, bucket_frames(n_max_marks))
+    results["ola"]["copy_synthesis"] = check_ola_copy_geometry(
+        dev, got[0][:, :F_a], got[2], S_a + (1 << 14), args.seed)
     frames_a = framing.pitch_sync_frames_batch(
         t_sig, got[0][:, :F_a], got[2], t_nsig, 4096, win_family=HANNING)[0]
     del got, ref
@@ -1355,7 +1487,9 @@ def main() -> None:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: r[k] for k in ("bytes_bound_ms",
-                                         "chain_ns_per_step") if k in r})
+                                         "chain_ns_per_step",
+                                         "valid_bound_ms", "copy_synthesis")
+                       if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,13 +1,13 @@
 """The 3-point median filter and the output high-pass in its spectral form
 (port of the default-path subset of magphase_tpu/core/filters.py).  Filter
-design is host scipy float64."""
+design is host scipy float64, imported at first use, so that importing
+the package stays cheap."""
 from __future__ import annotations
 
 import functools
 
 import numpy as np
 import torch
-from scipy import signal as sp_signal
 
 
 def medfilt3(v: torch.Tensor) -> torch.Tensor:
@@ -24,6 +24,7 @@ def medfilt3(v: torch.Tensor) -> torch.Tensor:
 def butter_highpass_sos(order: int, fc_hz: float, fs: int):
     """Butterworth high-pass as second-order sections (the 40 Hz output
     filter of magphase.py:990-995)."""
+    from scipy import signal as sp_signal
     sos = sp_signal.butter(order, fc_hz / (fs / 2.0), btype="highpass",
                            output="sos")
     return tuple(map(tuple, sos.tolist()))
@@ -35,6 +36,7 @@ def sos_freq_response_rfft(sos, fft_len: int):
     ``fft_len`` rfft bin frequencies, as two float32 vectors (re, im) —
     the per-bin gain the synthesis applies to every frame spectrum
     (MAGPHASE_HPF_MODE=spectral)."""
+    from scipy import signal as sp_signal
     w = 2.0 * np.pi * np.arange(fft_len // 2 + 1) / float(fft_len)
     _, H = sp_signal.sosfreqz(np.asarray(sos, np.float64), worN=w)
     return H.real.astype(np.float32), H.imag.astype(np.float32)

@@ -9,9 +9,23 @@
 //
 // What bounds them: all three move far more bytes than they compute on, so
 // the bound is device-memory bandwidth (each input read once, each output
-// written once).  The overlap-add kernels compute one output element per
-// thread, so neighbouring threads touch neighbouring addresses on both
-// sides.
+// written once).
+//
+// The overlap-add (K2) reads every valid frame element once and writes
+// every output sample once.  With one thread per output sample it was
+// latency-bound: each sample searched `starts` on its own and then walked
+// its ~N/shift covering frames with one dependent load in flight at a time.
+// So K2 gives one block to each tile of the output of one utterance: the
+// tile's run of covering frames is found once, staged in shared memory,
+// and each thread loads its samples of two frames at once before it adds
+// them, in frame order (details at ola_kernel); that leaves it bound by
+// the bytes of the frames.  K3 is K2 with the anti-ringing window applied
+// to each element at load time.  The window (an IEEE division and a
+// full-accuracy cosf, some 60 SASS instructions on the path taken) covers
+// about half of a frame's elements at the serving geometry, and that
+// instruction issue, on top of K2's bytes, is what bounds K3.  So the
+// window is computed only inside its support, from per-frame scalars
+// staged beside the starts, and K3 loads one frame at a time.
 //
 // K1 writes the (B, F, N) frames, the largest array of the analysis, and
 // most of it is zeros: a frame holds about two pitch periods of signal in
@@ -74,16 +88,6 @@ __device__ __forceinline__ float asym_win(int q, int L, int R, int fam) {
                   : 1.0f;
   }
   return half_profile(t, fam);
-}
-
-// Centred anti-ringing window (framing.py:apply_anti_ringing): raised
-// hanning at att=1 (equal to hanning) of lengths (wl, wr) with its peak at
-// N/2; outside its support the fill value h(t(q=0)), i.e. 0 for wl > 0
-// and 1 for wl == 0.
-__device__ __forceinline__ float anti_ring_win(int p, int wl, int wr, int N) {
-  int q = p - (N / 2 - wl);
-  if (q >= 0 && q <= wl + wr) return asym_win(q, wl, wr, 0);
-  return wl > 0 ? 0.0f : 1.0f;
 }
 
 // The scalars of one frame row, read once per block.
@@ -164,53 +168,195 @@ __global__ void __launch_bounds__(kThreads)
 // K2 / K3.  Gather form of the overlap-add: out[b,o] is the sum, in
 // increasing f from 0.0f, of frames[b,f,o-starts[b,f]] over the valid
 // frames f < nfrms[b] whose window [starts, starts+N) covers o.  Requires
-// starts[b, :nfrms[b]] non-decreasing, so those frames are one contiguous
-// run found by binary search.  No atomics: the sum order is fixed, and the
+// starts[b, :nfrms[b]] non-decreasing, so the frames that meet any range of
+// o are one contiguous run.  No atomics: the sum order is fixed, and the
 // result equals an in-order scatter-add bit for bit, run after run.
-__global__ void ola_kernel(const float* __restrict__ frames,
-                           const int* __restrict__ starts,
-                           const int* __restrict__ nfrms,
-                           const int* __restrict__ wl,
-                           const int* __restrict__ wr,
-                           float* __restrict__ out, int B, int F, int N, int O,
-                           int anti_ring) {
-  const int64_t total = (int64_t)B * O;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int o = (int)(i % O);
-    const int b = (int)(i / O);
-    const int* st = starts + (int64_t)b * F;
-    const int nf = min(nfrms[b], F);
-    // first frame whose window reaches o: starts[f] + N > o
-    int lo = 0, hi = nf;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (st[mid] <= o - N) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
+//
+// One block per (output tile of kOlaTile samples, utterance b).  Warp w
+// owns the kOlaSeg samples [seg_lo, seg_lo + kOlaSeg) of the tile, lane l
+// the samples seg_lo + l + 32 k, k < kOlaSpan: for one frame a warp reads
+// 32 consecutive floats per load and stores 32 consecutive floats.
+// - The tile's run [f_lo, f_hi) is found once per block, by two warps
+//   (warp_first_above), not once per sample.
+// - The run goes through shared memory in chunks of kOlaChunk frames (a run
+//   may be as long as F where starts repeat): their starts and, for K3,
+//   their window scalars, so no element does per-frame arithmetic.
+// - Each warp takes the part of the chunk that meets its segment (a
+//   contiguous range, by two ballots) and issues the loads of kUnroll
+//   frames for all its samples before it adds them, in frame order.  An
+//   element outside a frame loads nothing and adds +0.0f, which leaves the
+//   sum's bits as they are (the sum starts at +0.0f and cannot become -0.0f).
+// - Frames are read once (__ldcs) and the output written once (__stcs).
+constexpr int kOlaWarps = 8;
+constexpr int kOlaThreads = 32 * kOlaWarps;
+constexpr int kOlaSpan = 8;                       // samples per lane
+constexpr int kOlaSeg = 32 * kOlaSpan;            // samples per warp
+constexpr int kOlaTile = kOlaWarps * kOlaSeg;     // samples per block
+constexpr int kOlaChunk = 64;                     // frames staged at a time
+constexpr int kOlaUnroll = 2;                     // frames loaded together
+
+// First f in [0, n) with st[f] > x, n if none, for st non-decreasing over
+// [0, n); called by one whole warp, each step probing 32 evenly spaced
+// entries (two steps for n <= 1024).
+__device__ int warp_first_above(const int* __restrict__ st, int n,
+                                int64_t x, int lane) {
+  int lo = 0, hi = max(n, 0);  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int idx = lo + lane * step;
+    const bool at_or_below = idx < hi && (int64_t)__ldg(st + idx) <= x;
+    const int c = __popc(__ballot_sync(0xffffffffu, at_or_below));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      hi = min(lo + c * step, hi);
+      lo += (c - 1) * step + 1;
+    }
+  }
+  return lo;
+}
+
+// The centred anti-ringing window of K3 (framing.py:apply_anti_ringing):
+// raised hanning at att=1 (equal to hanning) of lengths (wl, wr) with its
+// peak at N/2, i.e. asym_win(q, wl, wr, hanning) at q = p - (N/2 - wl) for
+// q in [0, wl + wr], and outside that support the fill value h(t(q=0)): 0
+// for wl > 0, 1 for wl == 0.  ArWin holds one frame's scalars, computed
+// once per frame.
+struct alignas(16) ArWin {
+  int c0, span;
+  float wlf, wrf, wl1, wr1, lr, fill;  // wl, wr, max(wl,1), max(wr,1), wl+wr
+};
+
+__device__ __forceinline__ ArWin ar_win(int wl, int wr, int N) {
+  ArWin w;
+  w.c0 = N / 2 - wl;
+  w.span = wl + wr;
+  w.wlf = (float)wl;
+  w.wrf = (float)wr;
+  w.wl1 = fmaxf(w.wlf, 1.0f);
+  w.wr1 = fmaxf(w.wrf, 1.0f);
+  w.lr = __fadd_rn(w.wlf, w.wrf);
+  w.fill = wl > 0 ? 0.0f : 1.0f;
+  return w;
+}
+
+// The window at frame position p: inside the support the operations of
+// asym_win (one IEEE division, a full-accuracy cosf), outside the fill
+// with no arithmetic.
+__device__ __forceinline__ float ar_value(const ArWin& w, int p) {
+  const int q = p - w.c0;
+  if (q < 0 || q > w.span) return w.fill;
+  const float qf = (float)q;
+  const bool left = qf <= w.wlf;
+  const float len = left ? w.wlf : w.wrf;
+  const float t = len > 0.0f ? __fdiv_rn(left ? qf : __fsub_rn(w.lr, qf),
+                                         left ? w.wl1 : w.wr1)
+                             : 1.0f;
+  return half_profile(t, 0);
+}
+
+template <bool kAR>
+__global__ void __launch_bounds__(kOlaThreads)
+    ola_kernel(const float* __restrict__ frames,
+               const int* __restrict__ starts, const int* __restrict__ nfrms,
+               const int* __restrict__ wl, const int* __restrict__ wr,
+               float* __restrict__ out, int B, int F, int N, int O) {
+  __shared__ int s_run[2];
+  __shared__ int s_st[kOlaChunk];
+  __shared__ ArWin s_win[kAR ? kOlaChunk : 1];
+  // K3 loads one frame at a time: its window code is inlined once per
+  // element loaded together, and with two frames' copies the kernel ran
+  // slower on an H100, not faster (K2 gains from the second frame)
+  constexpr int kUnroll = kAR ? 1 : kOlaUnroll;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile_lo = blockIdx.x * kOlaTile;
+  const int seg_lo = tile_lo + warp * kOlaSeg;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const int64_t row = (int64_t)b * F;
+    if (warp < 2) {
+      // f_lo: the first frame that reaches the tile, st + N > tile_lo;
+      // f_hi: the first that starts past it, st >= tile_lo + kOlaTile
+      const int nf = min(nfrms[b], F);
+      const int64_t x = warp == 0 ? (int64_t)tile_lo - N
+                                  : (int64_t)tile_lo + kOlaTile - 1;
+      const int f = warp_first_above(starts + row, nf, x, lane);
+      if (lane == 0) s_run[warp] = f;
+    }
+    __syncthreads();
+    const int f_lo = s_run[0], f_hi = s_run[1];
+    float acc[kOlaSpan];
+#pragma unroll
+    for (int k = 0; k < kOlaSpan; ++k) acc[k] = 0.0f;
+    for (int c = f_lo; c < f_hi; c += kOlaChunk) {
+      const int nc = min(kOlaChunk, f_hi - c);
+      if (threadIdx.x < nc) {
+        const int64_t bf = row + c + threadIdx.x;
+        s_st[threadIdx.x] = starts[bf];
+        if (kAR) s_win[threadIdx.x] = ar_win(wl[bf], wr[bf], N);
       }
+      __syncthreads();
+      // the chunk's frames that meet this warp's segment: a contiguous
+      // range [j0, j1] of the chunk, since starts are non-decreasing
+      unsigned m[kOlaChunk / 32];
+#pragma unroll
+      for (int h = 0; h < kOlaChunk / 32; ++h) {
+        const int j = 32 * h + lane;
+        const bool meets = j < nc && (int64_t)s_st[j] + N > seg_lo &&
+                           s_st[j] < (int64_t)seg_lo + kOlaSeg;
+        m[h] = __ballot_sync(0xffffffffu, meets);
+      }
+      int j0 = nc, j1 = -1;
+#pragma unroll
+      for (int h = kOlaChunk / 32 - 1; h >= 0; --h)
+        if (m[h]) j0 = 32 * h + __ffs(m[h]) - 1;
+#pragma unroll
+      for (int h = 0; h < kOlaChunk / 32; ++h)
+        if (m[h]) j1 = 32 * h + 31 - __clz(m[h]);
+      for (int j = j0; j <= j1; j += kUnroll) {
+        float v[kUnroll][kOlaSpan];
+        int p0[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const bool live = j + u <= j1;
+          p0[u] = seg_lo + lane - (live ? s_st[j + u] : 0);
+          const float* fr = frames + (row + c + j + u) * N;
+#pragma unroll
+          for (int k = 0; k < kOlaSpan; ++k) {
+            const int p = p0[u] + 32 * k;
+            const bool in = live && p >= 0 && p < N &&
+                            seg_lo + lane + 32 * k < O;
+            v[u][k] = in ? __ldcs(fr + p) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const bool live = j + u <= j1;
+          const ArWin w = s_win[kAR && live ? j + u : 0];
+#pragma unroll
+          for (int k = 0; k < kOlaSpan; ++k) {
+            float x = v[u][k];
+            // an element outside the frame is 0 and its window value is
+            // finite, so its product adds +0.0f as well
+            if (kAR && live) x = __fmul_rn(x, ar_value(w, p0[u] + 32 * k));
+            acc[k] = __fadd_rn(acc[k], x);
+          }
+        }
+      }
+      __syncthreads();
     }
-    float acc = 0.0f;
-    for (int f = lo; f < nf && st[f] <= o; ++f) {
-      const int p = o - st[f];
-      const int64_t bf = (int64_t)b * F + f;
-      float v = frames[bf * N + p];
-      if (anti_ring) v = __fmul_rn(v, anti_ring_win(p, wl[bf], wr[bf], N));
-      acc = __fadd_rn(acc, v);
+    float* dst = out + (int64_t)b * O;
+#pragma unroll
+    for (int k = 0; k < kOlaSpan; ++k) {
+      const int o = seg_lo + lane + 32 * k;
+      if (o < O) __stcs(dst + o, acc[k]);
     }
-    out[i] = acc;
+    __syncthreads();  // s_run is written again for the next b
   }
 }
 
 unsigned int capped(int64_t blocks) {
   const int64_t cap = (int64_t)1 << 30;
   return (unsigned int)(blocks < cap ? blocks : cap);
-}
-
-unsigned int grid_for(int64_t total) {
-  return capped((total + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -234,10 +380,13 @@ int mp_frames(const float* sig, const int* pm, const int* L, const int* R,
 int mp_ola(const float* frames, const int* starts, const int* nfrms,
            const int* wl, const int* wr, float* out, int B, int F, int N,
            int O, int anti_ring, void* stream) {
-  const int64_t total = (int64_t)B * O;
-  if (total > 0) {
-    ola_kernel<<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        frames, starts, nfrms, wl, wr, out, B, F, N, O, anti_ring);
+  if (O > 0x7fffffff - kOlaTile) return (int)cudaErrorInvalidValue;
+  if (B > 0 && O > 0) {
+    const dim3 grid((unsigned int)((O + kOlaTile - 1) / kOlaTile),
+                    (unsigned int)min(B, 65535));
+    auto kernel = anti_ring ? ola_kernel<true> : ola_kernel<false>;
+    kernel<<<grid, kOlaThreads, 0, (cudaStream_t)stream>>>(
+        frames, starts, nfrms, wl, wr, out, B, F, N, O);
   }
   return (int)cudaGetLastError();
 }

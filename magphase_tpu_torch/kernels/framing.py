@@ -15,11 +15,22 @@ periods in N samples; rows past nfrms hold nothing), so it gives one block
 to each frame row: the row's scalars are read once, the row is split into
 its right half, a zero span and its left half, each
 thread stores 16-byte quads, and a quad wholly inside the zero span costs
-no arithmetic.  The OLA kernels take one thread per output element, which
-keeps both the gather and the store coalesced.  The OLA is written as a
-gather (each output sample sums the frames covering it, in frame order)
-rather than a float-atomic scatter, so it is deterministic and bitwise
-equal to an in-order scatter-add.
+no arithmetic.
+
+The OLA is written as a gather (each output sample sums the frames
+covering it, in frame order) rather than a float-atomic scatter, so it is
+deterministic and bitwise equal to an in-order scatter-add.  One thread per
+output sample, each searching ``starts`` and walking its covering frames
+one dependent load at a time, left it latency-bound.  So K2 gives one block
+to each 2,048-sample tile of one utterance's output: two warps find the
+tile's run of covering frames once, the run is staged in shared memory in
+chunks, and each warp loads its 256 samples of two frames at once (32
+consecutive floats per load, streaming) before it adds them in frame
+order; that leaves K2 bound by the frames' bytes.  K3 adds the
+anti-ringing window, computed only inside its support from per-frame
+scalars staged with the starts; its division and cosf are instruction
+issue on about half of the elements, which is what bounds K3, and it
+loads one frame at a time.
 
 Dispatch is by tensor device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises (a failed build
@@ -165,8 +176,9 @@ def ola(frames_, starts, nfrms, *, out_len: int) -> torch.Tensor:
     frames (B, F, N) float32; starts (B, F) int32; nfrms (B,) int32.
     Precondition: starts[b, :nfrms[b]] is non-decreasing (pitch marks are
     monotonic; both callers meet it by construction).  Bound on the card:
-    device-memory bandwidth (each frame element read once, each output
-    sample written once)."""
+    device-memory bandwidth (each valid frame element that lands in the
+    output read once, each output sample written once); the tiled gather
+    keeps the loads of two frames in flight per thread."""
     if frames_.device.type == "cpu":
         return ola_plain(frames_, starts, nfrms, out_len=out_len)
     _build.require_cuda(frames_, "ola")
@@ -183,7 +195,8 @@ def ola_anti_ring(frames_, starts, nfrms, wl, wr, *,
                   out_len: int) -> torch.Tensor:
     """K3: ``ola`` with each frame first multiplied by the anti-ringing
     window of lengths (wl, wr) (B, F) int32 (windows.anti_ring_window),
-    applied at load time.  Same precondition and bound as ``ola``."""
+    applied at load time.  Same precondition and bytes as ``ola``; the
+    window's division and cosf run only inside its support."""
     if frames_.device.type == "cpu":
         return ola_anti_ring_plain(frames_, starts, nfrms, wl, wr,
                                    out_len=out_len)

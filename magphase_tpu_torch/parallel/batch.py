@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import define_alpha, define_crossfade_params, define_fft_len
+from ..utils.keys import prng_key, split
 from ..utils.padding import (FRM_STEP, MAX_FRAME_ELEMS, bucket,
                              bucket_signal)
 from ..vocoder.compressed import (
@@ -180,7 +181,7 @@ def synthesis_from_compressed_batch(utts, fs: int,
                                     alpha_phase: float | None = None,
                                     b_out_hpf: bool = True,
                                     pf_type: str = "no",
-                                    mesh=None,
+                                    key=None, mesh=None,
                                     block_result: bool = True,
                                     pcm16: bool = False,
                                     transport: str = "f16",
@@ -190,10 +191,15 @@ def synthesis_from_compressed_batch(utts, fs: int,
     """Batch synthesis from compressed features.
 
     utts: list of (m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0) numpy
-    tuples.  ``keys``: (len(utts), 2) uint32 per-utterance noise keys —
-    required (derive them from a global utterance index so each
-    utterance's audio is independent of batching).  ``device``: where the
-    work runs (``"cuda"`` by default; ``"cpu"``, ``"cuda:1"``, ...).
+    tuples.  ``key``: the (2,) uint32 root noise key (a
+    ``jax.random.PRNGKey`` value; ``utils.keys.prng_key(0)`` when None);
+    the per-utterance keys are ``utils.keys.split(key, len(utts))``, bit
+    for bit what the JAX package derives, and prefix-stable, so an
+    utterance's audio does not depend on how the call splits the batch.
+    ``keys``: explicit (len(utts), 2) uint32 per-utterance keys, which
+    override ``key`` (corpus drivers derive them from the global utterance
+    index).  ``device``: where the work runs (``"cuda"`` by default;
+    ``"cpu"``, ``"cuda:1"``, ...).
 
     Returns a list of float64 numpy waveforms, or with
     ``block_result=False`` the (B, O) float32 buffer tensor on ``device``
@@ -210,9 +216,6 @@ def synthesis_from_compressed_batch(utts, fs: int,
     if pcm16 and block_result:
         raise ValueError("pcm16=True is a device transfer encoding; use "
                          "block_result=False")
-    if keys is None:
-        raise ValueError("keys= is required: (len(utts), 2) uint32 "
-                         "per-utterance noise keys")
     if transport != "f16":
         raise ValueError(f"transport={transport!r}: only 'f16' is supported")
     if mesh is not None:
@@ -223,6 +226,8 @@ def synthesis_from_compressed_batch(utts, fs: int,
     if per_phase_type not in PER_PHASE_TYPES:
         raise ValueError(per_phase_type)
     _check_hpf_mode()
+    if keys is None:
+        keys = split(prng_key(0) if key is None else key, len(utts))
     keys = np.asarray(keys, np.uint32)
     if keys.shape != (len(utts), 2):
         raise ValueError(f"keys shape {keys.shape}, expected "

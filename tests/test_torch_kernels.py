@@ -7,6 +7,7 @@ CUDA kernels against the plain versions run where a card is present
 (marker ``cuda``) and skip elsewhere.
 """
 import functools
+import re
 
 import numpy as np
 import jax
@@ -887,3 +888,169 @@ def test_frames_row_split_model_matches_plain(fams, n):
                 assert not row.any()
             elif n % 4 == 0 and 0 <= lf < n and rf >= 0:
                 assert n_comp <= min(n, lf + rf + 1 + 2 * 3)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 on the card: the tiled gather of csrc/framing.cu (ola_kernel) as a
+# numpy model, and the same edge cases kernel against plain on the card
+
+def _ola_kernel_constants():
+    """The tiling constants of csrc/framing.cu: (warps, samples per lane,
+    frames per shared chunk, frames loaded together); a warp's segment is
+    32 samples per lane, a block's tile the warps' segments."""
+    src = K.SOURCE.read_text()
+    c = dict(re.findall(r"constexpr int (kOla\w+) = ([^;]+);", src))
+    assert c["kOlaSeg"] == "32 * kOlaSpan"
+    assert c["kOlaTile"] == "kOlaWarps * kOlaSeg"
+    return tuple(int(c[k]) for k in ("kOlaWarps", "kOlaSpan", "kOlaChunk",
+                                     "kOlaUnroll"))
+
+
+def _warp_first_above(st, n, x):
+    """warp_first_above: the first f in [0, n) with st[f] > x (n if none),
+    by 32 evenly spaced probes a step, counted as the kernel's ballot."""
+    lo, hi, steps = 0, max(n, 0), 0
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        idx = lo + np.arange(32) * step
+        probed = idx < hi
+        c = int(np.sum(probed & (st[np.where(probed, idx, 0)] <= x)))
+        if c == 0:
+            hi = lo
+        else:
+            hi = min(lo + c * step, hi)
+            lo += (c - 1) * step + 1
+        steps += 1
+    return lo, steps
+
+
+def _ola_tile_model(frames, starts, nfrms, out_len):
+    """K2 as csrc/framing.cu computes it: one block per (tile, b) finds the
+    tile's run by two warp searches and stages it in chunks; each warp
+    walks the chunk's frames that meet its segment, kUnroll at a time, and
+    adds every element in frame order, +0.0f where it lies outside the
+    frame or past out_len.  Returns the output and the most search steps."""
+    warps, span, chunk, unroll = _ola_kernel_constants()
+    seg = 32 * span
+    tile = warps * seg
+    B, F, N = frames.shape
+    out = np.zeros((B, out_len), np.float32)
+    zero = np.float32(0.0)
+    max_steps = 0
+    for b in range(B):
+        nf = min(int(nfrms[b]), F)
+        st = starts[b].astype(np.int64)
+        for tile_lo in range(0, out_len, tile):
+            f_lo, s0 = _warp_first_above(st, nf, tile_lo - N)
+            f_hi, s1 = _warp_first_above(st, nf, tile_lo + tile - 1)
+            max_steps = max(max_steps, s0, s1)
+            for w in range(warps):
+                o = tile_lo + w * seg + np.arange(seg)
+                acc = np.zeros(seg, np.float32)
+                for c in range(f_lo, f_hi, chunk):
+                    s_st = st[c:c + min(chunk, f_hi - c)]
+                    meets = np.flatnonzero((s_st + N > o[0])
+                                           & (s_st < o[0] + seg))
+                    if len(meets) == 0:
+                        continue
+                    j1 = meets[-1]
+                    for j in range(meets[0], j1 + 1, unroll):
+                        vals = []
+                        for u in range(unroll):
+                            live = j + u <= j1
+                            p = o - (s_st[j + u] if live else 0)
+                            ok = live & (p >= 0) & (p < N) & (o < out_len)
+                            f = min(c + j + u, F - 1)
+                            vals.append(np.where(
+                                ok, frames[b, f, np.clip(p, 0, N - 1)], zero))
+                        for v in vals:                 # loads, then adds
+                            acc = (acc + v).astype(np.float32)
+                keep = o < out_len
+                out[b, o[keep]] = acc[keep]
+    return out, max_steps
+
+
+def _ola_case(name):
+    """(frames, starts, nfrms, wl, wr, out_len) of one edge case."""
+    rng = np.random.default_rng(sorted(_OLA_CASES).index(name) + 40)
+    Bc, Fc, Nc, out_len = _OLA_CASES[name]
+    shifts = rng.integers(40, 140, (Bc, Fc))
+    starts = np.cumsum(shifts, axis=1) - Nc // 2
+    nfrms = np.full(Bc, Fc)
+    frames = rng.standard_normal((Bc, Fc, Nc)).astype(np.float32)
+    if name == "nfrms_0":
+        nfrms[0] = 0
+    elif name == "nfrms_above_F":
+        nfrms[:] = Fc + 7
+    elif name == "negative_starts":
+        starts -= 900
+    elif name == "starts_past_O":
+        starts[1] += out_len - starts[1, Fc // 2]
+    elif name == "equal_runs":
+        # runs of one start longer than a shared chunk, one of them across
+        # a tile edge, and a short one
+        starts = np.sort(np.concatenate([
+            np.full(150, 700), np.full(90, 2040),
+            np.full(3, 2500), rng.integers(0, 4000, Fc - 243)]))[None, :]
+    elif name == "neg_zero_nan":
+        frames[0, :, ::3] = -0.0
+        frames[0, 5, 17] = np.nan
+        frames[1, 2, 100:110] = np.inf
+        frames[1, 3, 100:110] = -0.0
+        nfrms[1] = 5
+    wl = rng.integers(0, Nc // 2 + 40, (Bc, Fc))
+    wr = rng.integers(0, Nc // 2 + 40, (Bc, Fc))
+    wl[:, ::7] = 0
+    i32 = np.int32
+    return (frames, starts.astype(i32), nfrms.astype(i32), wl.astype(i32),
+            wr.astype(i32), out_len)
+
+
+# name -> (B, F, N, out_len)
+_OLA_CASES = {
+    "typical": (3, 96, 512, 5000), "nfrms_0": (2, 40, 256, 3000),
+    "nfrms_above_F": (2, 40, 256, 3000), "negative_starts": (2, 40, 512, 3000),
+    "starts_past_O": (2, 60, 256, 2100), "equal_runs": (1, 260, 128, 4100),
+    "O_below_N": (2, 12, 512, 300), "F_1": (2, 1, 512, 2048),
+    "neg_zero_nan": (2, 30, 256, 2500),
+}
+
+
+def _bits(x):
+    """float32 bit patterns, every NaN as the one quiet NaN."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return np.where(np.isnan(x), np.uint32(0x7FC00000), b)
+
+
+@pytest.mark.parametrize("case", sorted(_OLA_CASES))
+def test_ola_tile_model_matches_plain(case):
+    """The tiled gather of the CUDA K2 (``_ola_tile_model``) is bitwise
+    ola_plain, -0.0 and NaN included, on every edge case; its run search
+    takes at most two warp steps a block for F <= 1024."""
+    frames, starts, nfrms, _, _, out_len = _ola_case(case)
+    ref = K.ola_plain(*(torch.from_numpy(a) for a in (frames, starts,
+                                                      nfrms)),
+                      out_len=out_len).numpy()
+    got, steps = _ola_tile_model(frames, starts, nfrms, out_len)
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    assert steps <= 2
+    if case == "neg_zero_nan":
+        assert np.isnan(ref).any() and not np.signbit(ref[ref == 0]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_OLA_CASES))
+def test_cuda_ola_kernels_edge_cases_match_plain(cuda_device, case):
+    """The same edge cases on the card: K2 bitwise its plain version (NaN
+    as NaN), K3 within 1e-6 of its plain version."""
+    frames, starts, nfrms, wl, wr, out_len = _ola_case(case)
+    fr, st, nf, wl_, wr_ = (torch.from_numpy(a).to(cuda_device)
+                            for a in (frames, starts, nfrms, wl, wr))
+    got = K.ola(fr, st, nf, out_len=out_len)
+    ref = K.ola_plain(fr, st, nf, out_len=out_len)
+    np.testing.assert_array_equal(_bits(got.cpu().numpy()),
+                                  _bits(ref.cpu().numpy()))
+    got = K.ola_anti_ring(fr, st, nf, wl_, wr_, out_len=out_len).cpu()
+    ref = K.ola_anti_ring_plain(fr, st, nf, wl_, wr_, out_len=out_len).cpu()
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-6,
+                               equal_nan=True)

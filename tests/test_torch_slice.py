@@ -210,6 +210,21 @@ def test_port_never_imports_jax():
     assert res.returncode == 0, res.stderr
 
 
+def test_port_sources_name_no_jax_import():
+    """No source line of the port (or of chip_smoke.py) imports jax or the
+    JAX package, not even inside a function."""
+    import re
+    pat = re.compile(r"^\s*(?:import\s+(?:jax|magphase_tpu)\b(?!_torch)|"
+                     r"from\s+(?:jax|magphase_tpu)\b(?!_torch))")
+    root = os.path.dirname(magphase_tpu_torch.__file__)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+             if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    bad = [f"{path}:{i}" for path in files
+           for i, line in enumerate(open(path), 1) if pat.match(line)]
+    assert not bad, bad
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """chip_smoke.py exits non-zero and prints no result without a CUDA
     card, and likewise from a directory holding nothing else of the repo."""
@@ -226,13 +241,13 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(keys=None), dict(transport="int8"), dict(mesh=object()),
+    dict(transport="int8"), dict(mesh=object()),
     dict(pcm16=True), dict(pf_type="bogus"), dict(per_phase_type="bogus"),
     dict(env="blocked"), dict(env="spectral ")])
 def test_unported_options_raise(bad, monkeypatch):
-    """Missing keys=, transport != 'f16', a mesh, pcm16 with blocking
-    results, unknown filter/phase types and any MAGPHASE_HPF_MODE other
-    than 'spectral' (a later port, or a typo) raise ValueError up front."""
+    """transport != 'f16', a mesh, pcm16 with blocking results, unknown
+    filter/phase types and any MAGPHASE_HPF_MODE other than 'spectral' (a
+    later port, or a typo) raise ValueError up front."""
     utts = _utts(2, 32, 20, 10, seed=7)
     kw = dict(fft_len=512, keys=_keys(2), device="cpu")
     env = bad.pop("env", None)
