@@ -6,8 +6,8 @@ Builds the CUDA kernels from magphase_tpu_torch/csrc (framing.cu: K1-K3,
 walk.cu: K4, dft.cu: K5; one nvcc per source, started together), checks
 each against its plain torch version at the shapes its path gives it (K1
 beside a device fill of its output; K2 also at one copy-synthesis group's
-geometry, K2 and K3 beside the bytes bound of their valid frames alone,
-K3 beside the same call with one-sample windows and its SASS count per
+geometry, K2 and K3 with a bound over their valid frames alone and, for
+comparison with earlier rows, the bound of the padded frame array; K3 beside the same call with one-sample windows and its SASS count per
 windowed element; K4 beside the chain probe that gives the walk's own
 bound), then
 drives the port's paths, each with the launch counts set to 0 just before
@@ -17,7 +17,9 @@ it and read just after:
   voiced/unvoiced signals (K1 + K2), the anti-ringing overlap-add entry
   ola_centered_batch(ar_shifts=) (K3) against the two-pass form, and three
   requests of batched compressed synthesis (1, 8 and 128 utterances of
-  ~3 s at 48 kHz, 60/45 feature dims; K2);
+  ~3 s at 48 kHz, 60/45 feature dims; K2), then (counts read) the
+  8-utterance request with its noise keys derived from key= against the
+  same keys given as keys=;
 - wav-in compressed analysis: analysis_compressed_batch requests of 8 and
   192 utterances of 3 s at 48 kHz (fft_len 4096, 60/45 dims, tracked
   epochs; K4 in phase 1, K1 in phase 2), after a tracked lossless witness
@@ -401,16 +403,6 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def ola_valid_bound(frames, nfrms, *others) -> float:
-    """The bytes bound of an overlap-add over its valid frames alone: the
-    frames f < nfrms[b] read once, the other inputs and the output once
-    (``bound_ms`` counts every frame of the padded (B, F, N) array)."""
-    _, F, N = frames.shape
-    n_valid = int(torch.clamp(nfrms, 0, F).sum())
-    return bound(n_valid * N * frames.element_size() + nbytes(nfrms, *others),
-                 0)[0]
-
-
 def walk_work(f0, n_sigs, n_frames, marks, flags, n_marks, fs: int,
               frame_step: float):
     """What this run's walk needed: (window samples read, steps), from its
@@ -745,38 +737,54 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
     return counts
 
 
-def check_ola_copy_geometry(dev, marks, n_marks, O: int, seed: int) -> dict:
-    """K2 at the geometry of one copy-synthesis group: the synthesis frames
-    (B, F, 4096) of that group's marks, centred on them, into its (B, S +
-    16384) output; bitwise against its plain version, timed, with its
-    bytes bound and the bound of its valid frames alone."""
+def check_ola(frm, starts, nfrms, O: int, label: str, win=None,
+              library=None) -> dict:
+    """K2, or K3 with ``win`` = (wl, wr), against its plain version on
+    these inputs (K2 bitwise, K3 within TOL_OLA_AR), timed, beside the
+    one PyTorch call ``library`` where given.  The bound counts what the
+    call needs: the frames f < nfrms[b] read once, the other inputs and the
+    (B, O) output once, and per valid frame element one add (K2) or the
+    window and the multiply besides (K3: a division, a compare, cos, a
+    scale, the multiply and the add, 6).  ``padded_bound_ms`` counts every
+    frame of the padded (B, F, N) array, as the rows' earlier bound did."""
     from magphase_tpu_torch.kernels import framing as K
-    B, F = marks.shape
-    N = 4096
-    starts = (marks - N // 2).to(torch.int32).contiguous()
-    nfrms = n_marks.to(torch.int32).contiguous()
-    frm = torch.randn(B, F, N, device=dev,
-                      generator=torch.Generator(dev).manual_seed(seed + 1))
-    got = K.ola(frm, starts, nfrms, out_len=O)
-    ref = K.ola_plain(frm, starts, nfrms, out_len=O)
+    if win is None:
+        def kern():
+            return K.ola(frm, starts, nfrms, out_len=O)
+
+        def plain():
+            return K.ola_plain(frm, starts, nfrms, out_len=O)
+        ops, tol = 1, 0.0
+    else:
+        def kern():
+            return K.ola_anti_ring(frm, starts, nfrms, *win, out_len=O)
+
+        def plain():
+            return K.ola_anti_ring_plain(frm, starts, nfrms, *win, out_len=O)
+        ops, tol = 6, TOL_OLA_AR
+    got, ref = kern(), plain()
     torch.cuda.synchronize()
-    if not torch.equal(got, ref):
-        raise AssertionError("K2 ola at the copy-synthesis geometry: kernel "
-                             "is not bitwise equal to plain")
-    bnd = bound(nbytes(frm, starts, nfrms, got), frm.numel())
-    r = dict(B=B, F=F, N=N, O=O, max_abs_err=0.0,
-             ms=cuda_ms(lambda: K.ola(frm, starts, nfrms, out_len=O)),
-             plain_ms=cuda_ms(lambda: K.ola_plain(frm, starts, nfrms,
-                                                  out_len=O), reps=3),
-             bound_ms=bnd[0], bound_by=bnd[1],
-             valid_bound_ms=ola_valid_bound(frm, nfrms, starts, got))
-    log(f"[kernels] ola at the copy-synthesis geometry B={B} F={F} N={N} "
-        f"O={O}: bitwise equal to plain; kernel {r['ms']:.4f} ms plain "
-        f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+    err = float((got - ref).abs().max())
+    if not (err <= tol and (win is not None or torch.equal(got, ref))):
+        raise AssertionError(f"{label}: max |kernel - plain| {err:.3g} > "
+                             f"{tol}")
+    B, F, N = frm.shape
+    n_valid = int(torch.clamp(nfrms, 0, F).sum())
+    rest = nbytes(starts, nfrms, got, *(win or ()))
+    bnd = bound(n_valid * N * frm.element_size() + rest, ops * n_valid * N)
+    r = dict(B=B, F=F, N=N, O=O, max_abs_err=err, ms=cuda_ms(kern),
+             plain_ms=cuda_ms(plain, reps=3), bound_ms=bnd[0],
+             bound_by=bnd[1],
+             library_ms=None if library is None else cuda_ms(library, reps=5),
+             padded_bound_ms=bound(nbytes(frm) + rest, ops * frm.numel())[0])
+    lib = ("" if library is None
+           else f" scatter_add_ {r['library_ms']:.4f} ms")
+    log(f"[kernels] {label} B={B} F={F} N={N} O={O}: max_abs_err {err:.3g} "
+        f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms{lib}; bound "
+        f"of the {n_valid} valid frames of {B * F} {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} reached; bound "
-        f"of the {int(nfrms.sum())} valid frames of {B * F} "
-        f"{r['valid_bound_ms']:.4f} ms, {r['valid_bound_ms'] / r['ms']:.1%} "
-        "reached")
+        f"of the padded array {r['padded_bound_ms']:.4f} ms, "
+        f"{r['padded_bound_ms'] / r['ms']:.1%}")
     return r
 
 
@@ -1124,6 +1132,7 @@ def main() -> None:
     from magphase_tpu_torch.epochs import placement_device as pd
     from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.parallel import batch
+    from magphase_tpu_torch.utils.keys import prng_key, split
     from magphase_tpu_torch.utils.padding import (FRM_STEP, bucket,
                                                   bucket_frames,
                                                   bucket_signal)
@@ -1204,13 +1213,6 @@ def main() -> None:
     wl = wl.to(torch.int32).contiguous()
     wr = wr.to(torch.int32).contiguous()
     O = host["O"]
-    got = K.ola(frm, starts, s_nfrms, out_len=O)
-    ref = K.ola_plain(frm, starts, s_nfrms, out_len=O)
-    torch.cuda.synchronize()
-    k2_err = float((got - ref).abs().max())
-    if not torch.equal(got, ref):
-        raise AssertionError("K2 ola: kernel is not bitwise equal to plain "
-                             f"(max diff {k2_err:.3g})")
     # the one torch call that computes the same sums (in another order):
     # scatter_add_ over flattened indices, invalid samples to a spare slot
     p_ = torch.arange(fft_syn, device=dev)
@@ -1226,47 +1228,11 @@ def main() -> None:
         out = torch.zeros(Bs * (O + 1), device=dev)
         return out.scatter_add_(0, flat, frm_flat)
 
-    # bytes: frames, starts and counts once, the (B, O) output once;
-    # operations: one add per frame element
-    bnd = bound(nbytes(frm, starts, s_nfrms, got), frm.numel())
-    results["ola"] = dict(
-        max_abs_err=k2_err,
-        ms=cuda_ms(lambda: K.ola(frm, starts, s_nfrms, out_len=O)),
-        plain_ms=cuda_ms(lambda: K.ola_plain(frm, starts, s_nfrms,
-                                             out_len=O), reps=3),
-        bound_ms=bnd[0], bound_by=bnd[1],
-        library_ms=cuda_ms(ola_library, reps=5),
-        valid_bound_ms=ola_valid_bound(frm, s_nfrms, starts, got))
+    results["ola"] = check_ola(frm, starts, s_nfrms, O, "ola",
+                               library=ola_library)
     del flat, frm_flat
-    got = K.ola_anti_ring(frm, starts, s_nfrms, wl, wr, out_len=O)
-    ref = K.ola_anti_ring_plain(frm, starts, s_nfrms, wl, wr, out_len=O)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if not err <= TOL_OLA_AR:
-        raise AssertionError(f"K3 ola_anti_ring: max |kernel - plain| "
-                             f"{err:.3g} > {TOL_OLA_AR}")
-    # as K2, plus the window lengths read and the window per element (a
-    # division, a compare, cos, a scale and the multiply): 6 operations
-    bnd = bound(nbytes(frm, starts, s_nfrms, wl, wr, got), 6 * frm.numel())
-    results["ola_anti_ring"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: K.ola_anti_ring(frm, starts, s_nfrms, wl, wr,
-                                           out_len=O)),
-        plain_ms=cuda_ms(lambda: K.ola_anti_ring_plain(
-            frm, starts, s_nfrms, wl, wr, out_len=O), reps=3),
-        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
-        valid_bound_ms=ola_valid_bound(frm, s_nfrms, starts, wl, wr, got))
-    for name in ("ola", "ola_anti_ring"):
-        r = results[name]
-        lib = ("" if r["library_ms"] is None
-               else f" scatter_add_ {r['library_ms']:.4f} ms")
-        log(f"[kernels] {name} B={Bs} F={Fs_} N={fft_syn} O={O}: max_abs_err "
-            f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms plain "
-            f"{r['plain_ms']:.4f} ms{lib} bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} reached; "
-            f"bound of the {int(s_nfrms.sum())} valid frames of {Bs * Fs_} "
-            f"{r['valid_bound_ms']:.4f} ms, {r['valid_bound_ms'] / r['ms']:.1%}"
-            " reached")
+    results["ola_anti_ring"] = check_ola(frm, starts, s_nfrms, O,
+                                         "ola_anti_ring", win=(wl, wr))
     # what bounds K3: the same call with every window one sample wide (its
     # division and cosf run on one element per frame), beside K2
     k3_ms = results["ola_anti_ring"]["ms"]
@@ -1280,7 +1246,7 @@ def main() -> None:
         f"ms; the windows cover {support / (int(s_nfrms.sum()) * fft_syn):.1%}"
         f" of the valid frames' elements; K3 SASS: "
         f"{ola_sass(infos['framing']['path'], _build.find_nvcc())}")
-    del got, ref, one
+    del one
 
     # the anti-ringing window and the OLA as one pass (K3) or two (window,
     # then K2), timed at the entry of core/framing.py
@@ -1358,8 +1324,17 @@ def main() -> None:
     # analysis group at its realised frame bucket, the inverse at the
     # 128-utterance serving geometry
     F_a = min(m_max_a, bucket_frames(n_max_marks))
-    results["ola"]["copy_synthesis"] = check_ola_copy_geometry(
-        dev, got[0][:, :F_a], got[2], S_a + (1 << 14), args.seed)
+    # K2 at the geometry of one copy-synthesis group: the synthesis frames
+    # (B, F, 4096) of that group's marks, centred on them, into its (B, S +
+    # 16384) output
+    c_starts = (got[0][:, :F_a] - 2048).to(torch.int32).contiguous()
+    c_frm = torch.randn(*c_starts.shape, 4096, device=dev,
+                        generator=torch.Generator(dev).manual_seed(
+                            args.seed + 1))
+    results["ola"]["copy_synthesis"] = check_ola(
+        c_frm, c_starts, got[2].to(torch.int32).contiguous(),
+        S_a + (1 << 14), "ola at the copy-synthesis geometry")
+    del c_frm, c_starts
     frames_a = framing.pitch_sync_frames_batch(
         t_sig, got[0][:, :F_a], got[2], t_nsig, 4096, win_family=HANNING)[0]
     del got, ref
@@ -1446,6 +1421,20 @@ def main() -> None:
     log(f"[serve] CUDA vs CPU, 8 utts: max|diff|/peak {rel:.3g} "
         f"(bound {TOL_CUDA_VS_CPU}); CPU took {dt_cpu * 1000:.1f} ms")
 
+    # the noise keys derived from key= (no keys=) on the card, against the
+    # same request given split(key, 8) as keys=
+    root = prng_key(args.seed)
+    by_key, by_keys = (batch.synthesis_from_compressed_batch(
+        feats[:8], FS, pf_type="magphase", device=dev, **kw)
+        for kw in (dict(key=root), dict(keys=split(root, 8))))
+    rel = max(float(np.abs(a - b).max()) for a, b in zip(by_key, by_keys)) \
+        / max(float(np.abs(w).max()) for w in by_keys)
+    if not rel <= TOL_CUDA_VS_CPU:
+        raise AssertionError(f"key= vs keys=split(key, 8): max|diff|/peak "
+                             f"{rel:.3g} > {TOL_CUDA_VS_CPU}")
+    log(f"[serve] 8 utts by key=prng_key({args.seed}) vs keys=split(key, 8):"
+        f" max|diff|/peak {rel:.3g}")
+
     # warm timings of the three requests
     for n in REQUEST_SIZES:
         walls = []
@@ -1488,7 +1477,7 @@ def main() -> None:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: r[k] for k in ("bytes_bound_ms",
                                          "chain_ns_per_step",
-                                         "valid_bound_ms", "copy_synthesis")
+                                         "padded_bound_ms", "copy_synthesis")
                        if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))

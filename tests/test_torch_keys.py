@@ -1,9 +1,12 @@
 """The port's noise keys and public API against the JAX package:
 utils/keys.py (threefry-2x32 in numpy) bit for bit against jax.random,
 the key= derivation of synthesis_from_compressed_batch, its signature, and
-the package's exports.
+the package's exports, and that importing the package builds no kernel.
 """
 import inspect
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -15,6 +18,7 @@ import magphase_tpu_torch
 import magphase_tpu_torch.epochs
 from magphase_tpu.parallel import batch as jbatch
 from magphase_tpu_torch.parallel import batch as tbatch
+from magphase_tpu_torch.kernels import _build
 from magphase_tpu_torch.utils import keys as K
 
 FS = 48000
@@ -190,3 +194,26 @@ def test_get_pitch_marks_is_extract_epochs_times():
                                                    device="cpu")[0]
     np.testing.assert_array_equal(got, ref)
     assert len(got) > 10 and np.all(np.diff(got) > 0)
+
+
+def test_import_builds_no_kernel():
+    """Importing the package, its entries and its kernel modules in a fresh
+    interpreter loads no kernel library, writes nothing to the build
+    directory and imports no jax: each _library() stays lazy."""
+    code = (
+        "import sys\n"
+        "import magphase_tpu_torch, magphase_tpu_torch.epochs\n"
+        "import magphase_tpu_torch.parallel\n"
+        "from magphase_tpu_torch.kernels import dft, framing, walk\n"
+        "assert 'jax' not in sys.modules\n"
+        "for m in (dft, framing, walk):\n"
+        "    assert m._library.cache_info().currsize == 0, m.__name__\n")
+
+    def listing():
+        d = _build.BUILD_DIR
+        return sorted(p.name for p in d.iterdir()) if d.exists() else None
+
+    before = listing()
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=Path(__file__).resolve().parents[1])
+    assert listing() == before
