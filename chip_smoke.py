@@ -1083,6 +1083,256 @@ def profile_copy_synthesis(a_sigs, dev) -> None:
                  lambda: cs.copy_synthesis_batch(req, FS, device=dev))
 
 
+# ---------------------------------------------------------------------------
+# the MagPhaseVocoder facade: single-utterance analysis and synthesis from
+# wav files, the constant frame rate and the filter-bank mel warp
+
+FACADE_UTTS = 4
+FACADE_WARM_RUNS = 5
+# batch == single: synthesis_from_compressed_batch(key=k) against the single
+# entry given split(k, n)[i], absolute, the JAX package's own bound
+# (tests/test_parallel.py); the CPU tests measure 1.2e-7
+TOL_BATCH_VS_SINGLE = 2e-4
+
+
+def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool):
+    """Compressed features of one utterance, card against CPU.  The marks
+    (cumulative shifts): equal in number, at most MAX_MARK_DIFF_SHARE of
+    them moved.  A walk (the single entry's on the host, K4 in
+    analyze_batch) snaps each voiced mark to the lowest sample of the
+    tracker's snap signal in a window; where two troughs there are equal
+    within float32 round-off, the card's and the CPU's tracker outputs may
+    pick different ones, so a mark may move by more than one sample (the
+    largest move is logged).  The mel streams within TOL_ANALYSIS_STREAMS
+    and lf0 within
+    TOL_ANALYSIS_LF0_REL relative on the rows whose inputs agree: frames
+    whose marks agree at f-2 .. f+2, or on the 5 ms grid the rows 0.2 s
+    (longer than any unvoiced run of the witnesses, which the voiced-only
+    f0 interpolation spans) from every moved mark.  Returns (moved, marks,
+    largest move, streams err, lf0 err, rows)."""
+    pm_g, pm_c = np.cumsum(gpu[4]), np.cumsum(cpu[4])
+    if len(pm_g) != len(pm_c):
+        raise AssertionError(f"{what}: {len(pm_g)} marks on the card against "
+                             f"{len(pm_c)} on the CPU")
+    d = np.abs(pm_g - pm_c)
+    moved = pm_c[d > 0]
+    if len(moved) > MAX_MARK_DIFF_SHARE * len(pm_c):
+        raise AssertionError(f"{what}: {len(moved)} of {len(pm_c)} marks "
+                             "moved")
+    if gpu[0].shape != cpu[0].shape:
+        raise AssertionError(f"{what}: shapes {gpu[0].shape} against "
+                             f"{cpu[0].shape}")
+    if const_rate:
+        t = 240.0 * (np.arange(len(cpu[3])) + 1)
+        ok = np.ones(len(t), bool)
+        for m in moved:
+            ok &= np.abs(t - m) > 0.2 * FS
+    else:
+        ok = agreeing_frames(pm_g, pm_c)
+    s_err = max(float(np.abs(gpu[k][ok] - cpu[k][ok]).max(initial=0.0))
+                for k in range(3))
+    v = ok & (cpu[3] > -1e9)
+    l_err = float(np.max(np.abs(gpu[3][v] - cpu[3][v]) / np.abs(cpu[3][v]),
+                         initial=0.0))
+    if not (s_err <= TOL_ANALYSIS_STREAMS and l_err <= TOL_ANALYSIS_LF0_REL
+            and np.array_equal(gpu[3] > -1e9, cpu[3] > -1e9)):
+        raise AssertionError(f"{what}: card vs CPU streams {s_err:.3g}, lf0 "
+                             f"{l_err:.3g} relative, out of bounds")
+    return len(moved), len(pm_c), int(d.max()), s_err, l_err, int(ok.sum())
+
+
+def _wav_rel(a, b) -> float:
+    if a.shape != b.shape:
+        raise AssertionError(f"waveform lengths {a.shape} against {b.shape}")
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def run_facade_path(dev, seed: int) -> dict:
+    """Path 5, the README quickstart: MagPhaseVocoder(fs=48000, mag_dim=60,
+    phase_dim=45, pf_type="magphase") on FACADE_UTTS witness signals of
+    UTT_SECONDS written as PCM16 wavs.  With the launch counts from 0:
+    analyze (tracked epochs) -> synthesize on each wav, the same with
+    b_const_rate=True, analysis_compressed(b_mag_fbank_mel=True) ->
+    synthesis_from_compressed(b_fbank_mel=True), and analyze_batch
+    (b_const_rate=True) on the signals; K1, K2 and K4 must have run.  Then
+    the card against the CPU (the same calls with device="cpu"), batch ==
+    single synthesis, and the cold and warm wall times of analyze and
+    synthesize.  Returns the launch counts."""
+    import tempfile
+
+    from magphase_tpu_torch.io import wav as wav_io
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    from magphase_tpu_torch.models import MagPhaseVocoder
+    from magphase_tpu_torch.parallel import batch
+    from magphase_tpu_torch.utils.keys import prng_key, split
+    from magphase_tpu_torch.vocoder import compressed
+
+    rng = np.random.default_rng(seed + 1000)
+    sigs = make_witness_signals(rng, FACADE_UTTS, UTT_SECONDS)[0]
+    cfg = dict(fs=FS, mag_dim=MAG_DIM, phase_dim=PHASE_DIM,
+               pf_type="magphase")
+    key = prng_key(seed)
+    fb_kw = dict(mag_dim=MAG_DIM, phase_dim=PHASE_DIM)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_facade_") as tmp:
+        wavs = []
+        for i, x in enumerate(sigs):
+            wavs.append(os.path.join(tmp, f"witness_{i}.wav"))
+            wav_io.write_wav(wavs[-1], x, FS)
+        signals = [wav_io.read_wav(w)[0] for w in wavs]
+
+        def facade_runs(device, feat_dtype):
+            """Every facade call of the path on ``device``: (features and
+            waveforms per wav, const-rate features and waveform of wav 0,
+            fbank features and waveform of wav 0, analyze_batch output in
+            ``feat_dtype``, cold ms of analyze and synthesize)."""
+            voc = MagPhaseVocoder(**cfg, device=device)
+            voc_c = MagPhaseVocoder(**cfg, b_const_rate=True, device=device)
+            sync = (torch.cuda.synchronize if device != "cpu"
+                    else (lambda: None))
+            sync()
+            t0 = time.perf_counter()
+            feats = [voc.analyze(wavs[0])]
+            sync()
+            t1 = time.perf_counter()
+            outs = [voc.synthesize(*feats[0], key=key)]
+            sync()
+            cold = ((t1 - t0) * 1000, (time.perf_counter() - t1) * 1000)
+            for w in wavs[1:]:
+                feats.append(voc.analyze(w))
+                outs.append(voc.synthesize(*feats[-1], key=key))
+            f_c = voc_c.analyze(wavs[0])
+            w_c = voc_c.synthesize(*f_c, key=key)
+            f_fb = compressed.analysis_compressed(
+                wavs[0], b_mag_fbank_mel=True, device=device, **fb_kw)
+            w_fb = compressed.synthesis_from_compressed(
+                *f_fb[:4], FS, b_fbank_mel=True, key=key, device=device)
+            batch_c = voc_c.analyze_batch(signals, feat_dtype=feat_dtype)
+            return feats, outs, (f_c, w_c), (f_fb, w_fb), batch_c, cold
+
+        K.reset_launch_counts()
+        K4.reset_launch_counts()
+        feats, outs, (f_c, w_c), (f_fb, w_fb), batch_c, cold = \
+            facade_runs(dev, np.float16)
+        counts = {**K.launch_counts(), **K4.launch_counts()}
+        log(f"[facade] launches during the facade path: {counts}")
+        for name in ("frames", "ola", "walk"):
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     "facade path")
+        for i, (f, w) in enumerate(zip(feats + [f_c, f_fb],
+                                       outs + [w_c, w_fb])):
+            # at the constant rate the length comes from the backward walk
+            # of the 5 ms shift track; else from the features' lf0
+            n_want = (expected_out_len(f[3]) if i != FACADE_UTTS
+                      else len(sigs[0]))
+            if not abs(len(w) - n_want) <= (0 if i != FACADE_UTTS
+                                            else 0.05 * n_want):
+                raise AssertionError(f"facade run {i}: output length "
+                                     f"{len(w)} against {n_want}")
+            if not (np.all(np.isfinite(w)) and np.std(w) > 1e-4):
+                raise AssertionError(f"facade run {i}: non-finite or silent")
+            if not all(np.all(np.isfinite(x)) for x in f[:4]):
+                raise AssertionError(f"facade run {i}: non-finite features")
+        for i, f in enumerate(batch_c):
+            grid = np.arange(240.0, np.cumsum(f[4])[-1], 240.0)
+            if f[0].shape != (len(grid), MAG_DIM):
+                raise AssertionError(f"analyze_batch(b_const_rate) utt {i}: "
+                                     f"{f[0].shape}, {len(grid)} grid rows")
+
+        # the card against the CPU: the same calls, analyze_batch with
+        # float32 output (the default float16 rounds card and CPU values
+        # that differ by round-off to neighbouring float16 steps)
+        t0 = time.perf_counter()
+        c_feats, c_outs, (c_f_c, c_w_c), (c_f_fb, c_w_fb), c_batch_c, \
+            c_cold = facade_runs("cpu", np.float32)
+        dt_cpu = time.perf_counter() - t0
+        batch_c = MagPhaseVocoder(**cfg, b_const_rate=True,
+                                  device=dev).analyze_batch(
+            signals, feat_dtype=np.float32)
+        checks = ([(g, c, f"analyze wav {i}", False, True)
+                   for i, (g, c) in enumerate(zip(feats, c_feats))]
+                  + [(f_c, c_f_c, "analyze b_const_rate", True, True),
+                     (f_fb, c_f_fb, "analysis_compressed fbank", False, True)]
+                  + [(g, c, f"analyze_batch b_const_rate utt {i}", True, False)
+                     for i, (g, c) in enumerate(zip(batch_c, c_batch_c))])
+        moved = {True: 0, False: 0}
+        marks = {True: 0, False: 0}
+        move = {True: 0, False: 0}
+        rows = 0
+        s_err = l_err = 0.0
+        for g, c, what, const, host in checks:
+            mv, mk, mx, se, le, nr = _facade_card_vs_cpu(g, c, what, const)
+            moved[host] += mv
+            marks[host] += mk
+            move[host] = max(move[host], mx)
+            rows += nr
+            s_err, l_err = max(s_err, se), max(l_err, le)
+        log(f"[facade] CUDA vs CPU features, {len(checks)} analyses: marks "
+            f"moved {moved[True]} of {marks[True]} by the host walk (largest "
+            f"move {move[True]} samples), {moved[False]} of {marks[False]} "
+            f"by K4 (largest {move[False]}); bound {MAX_MARK_DIFF_SHARE} of "
+            f"them in each analysis; on {rows} agreeing rows max "
+            f"|diff| {s_err:.3g} on the mel streams (bound "
+            f"{TOL_ANALYSIS_STREAMS}), {l_err:.3g} relative on lf0 (bound "
+            f"{TOL_ANALYSIS_LF0_REL}); the CPU took {dt_cpu:.1f} s for the "
+            "path")
+
+        # the waveform from the same (CPU) features, card against CPU
+        voc = MagPhaseVocoder(**cfg, device=dev)
+        voc_c = MagPhaseVocoder(**cfg, b_const_rate=True, device=dev)
+        rel = max([_wav_rel(voc.synthesize(*f, key=key), w)
+                   for f, w in zip(c_feats, c_outs)]
+                  + [_wav_rel(voc_c.synthesize(*c_f_c, key=key), c_w_c),
+                     _wav_rel(compressed.synthesis_from_compressed(
+                         *c_f_fb[:4], FS, b_fbank_mel=True, key=key,
+                         device=dev), c_w_fb)])
+        if not rel <= TOL_CUDA_VS_CPU:
+            raise AssertionError(f"facade synthesis, card vs CPU from the "
+                                 f"same features: {rel:.3g} of the peak")
+        log(f"[facade] CUDA vs CPU waveforms from the same features, "
+            f"{FACADE_UTTS + 2} utts: max|diff|/peak {rel:.3g} (bound "
+            f"{TOL_CUDA_VS_CPU})")
+
+        # batch == single on the card, without the output high-pass
+        utts = [f[:4] for f in feats]
+        by_batch = batch.synthesis_from_compressed_batch(
+            utts, FS, key=key, b_out_hpf=False, device=dev)
+        keys = split(key, len(utts))
+        err = 0.0
+        for i, u in enumerate(utts):
+            one = compressed.synthesis_from_compressed(
+                *u, FS, b_out_hpf=False, key=keys[i], device=dev)
+            if one.shape != by_batch[i].shape:
+                raise AssertionError(f"batch vs single, utt {i}: lengths")
+            err = max(err, float(np.abs(by_batch[i] - one).max()))
+        if not err <= TOL_BATCH_VS_SINGLE:
+            raise AssertionError(f"batch vs single on the card: {err:.3g}")
+        log(f"[facade] batch == single on the card, {len(utts)} utts: max "
+            f"|diff| {err:.3g} (bound {TOL_BATCH_VS_SINGLE})")
+
+        # wall times per UTT_SECONDS utterance: the first call of the
+        # process (cold) and the median of FACADE_WARM_RUNS warm calls
+        walls_a, walls_s = [], []
+        for _ in range(FACADE_WARM_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = voc.analyze(wavs[0])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            voc.synthesize(*f, key=key)
+            torch.cuda.synchronize()
+            walls_a.append((t1 - t0) * 1000)
+            walls_s.append((time.perf_counter() - t1) * 1000)
+        for name, c, w in (("analyze", cold[0], walls_a),
+                           ("synthesize", cold[1], walls_s)):
+            log(f"[facade] {name}, one {UTT_SECONDS} s utterance: cold "
+                f"{c:.1f} ms, warm median {np.median(w):.1f} ms of "
+                f"{FACADE_WARM_RUNS} (min {min(w):.1f}, max {max(w):.1f}); "
+                f"the CPU's first call {c_cold[0 if name == 'analyze' else 1]:.1f} ms")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1461,6 +1711,7 @@ def main() -> None:
                                  S_a)
     run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois,
                             (t_sig, t_nsig, t_nfrm), Tmax_a, m_max_a, S_a)
+    counts_f = run_facade_path(dev, args.seed)
 
     if args.profile:
         profile_request(feats, keys_all, dev)
@@ -1470,6 +1721,8 @@ def main() -> None:
     launches = {**counts, "walk": counts_a["walk"],
                 "rfft_fused": counts_k5["rfft_fused"],
                 "irfft_fused": counts_k5["irfft_fused"]}
+    for name, c in counts_f.items():
+        launches[name] += c
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

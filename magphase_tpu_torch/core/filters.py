@@ -1,5 +1,6 @@
-"""The 3-point median filter and the output high-pass in its spectral form
-(port of the default-path subset of magphase_tpu/core/filters.py).  Filter
+"""The 3-point median filter and the 40 Hz output high-pass, as (b, a) for
+the host IIR of single-utterance synthesis and in its spectral form for
+the batched paths (port of that subset of magphase_tpu/core/filters.py).  Filter
 design is host scipy float64, imported at first use, so that importing
 the package stays cheap."""
 from __future__ import annotations
@@ -18,6 +19,14 @@ def medfilt3(v: torch.Tensor) -> torch.Tensor:
     c = torch.cat([v[..., 1:], zero], dim=-1)
     return torch.maximum(torch.minimum(a, v),
                          torch.minimum(torch.maximum(a, v), c))
+
+
+@functools.lru_cache(maxsize=16)
+def butter_highpass_coeffs(order: int, fc_hz: float, fs: int):
+    """Butterworth high-pass (b, a) — magphase.py:990-995."""
+    from scipy import signal as sp_signal
+    b, a = sp_signal.butter(order, fc_hz / (fs / 2.0), btype="highpass")
+    return tuple(b.tolist()), tuple(a.tolist())
 
 
 @functools.lru_cache(maxsize=16)

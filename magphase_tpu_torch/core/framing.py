@@ -10,7 +10,9 @@ fft_len//2 and OLA places that index at pm[f] (magphase.py:55-60).
 
 The frame gather and the overlap-add are kernels K1-K3
 (kernels/framing.py), which dispatch by tensor device: the plain torch
-version on the CPU, the CUDA kernel on the card.
+version on the CPU, the CUDA kernel on the card.  The single-utterance
+forms (frame_geometry, pitch_sync_frames, ola_centered) are batches of one
+through the batched entries, so they reach the same kernels.
 """
 from __future__ import annotations
 
@@ -109,3 +111,41 @@ def ola_centered_batch(frames: torch.Tensor, pm: torch.Tensor,
     wl, wr = ar_winlens(ar_shifts, nfrms)
     return K.ola_anti_ring(frames, starts, nfrms, wl.to(i32).contiguous(),
                            wr.to(i32).contiguous(), out_len=out_len_max)
+
+
+# ---------------------------------------------------------------------------
+# single-utterance forms: batches of one, on ``device``
+
+def _one(device, *arrays):
+    """Each array, tensor or scalar as a (1, ...) tensor on ``device``."""
+    return [torch.as_tensor(a, device=device)[None] for a in arrays]
+
+
+def frame_geometry(pm, nfrms, n_sig, *, device="cuda"):
+    """Per-frame (left_lim, L, R, valid) of one utterance's padded pitch
+    marks pm (F,)."""
+    return tuple(x[0] for x in frame_geometry_batch(
+        *_one(device, pm, nfrms, n_sig)))
+
+
+def pitch_sync_frames(sig, pm, nfrms, n_sig, fft_len: int,
+                      win_family: int = W.HANNING, voiced=None,
+                      win_family_unvoiced: int | None = None, *,
+                      device="cuda"):
+    """Windowed, delay-compensated frames (F, fft_len) of one utterance
+    (magphase.py:291-323) through kernel K1.  Returns (frames, L, R,
+    valid)."""
+    sig, pm, nfrms, n_sig = _one(device, sig, pm, nfrms, n_sig)
+    if voiced is not None:
+        (voiced,) = _one(device, voiced)
+    return tuple(x[0] for x in pitch_sync_frames_batch(
+        sig, pm, nfrms, n_sig, fft_len, win_family, voiced,
+        win_family_unvoiced))
+
+
+def ola_centered(frames, pm, nfrms, out_len_max: int, *,
+                 device="cuda") -> torch.Tensor:
+    """Overlap-add of one utterance's frames (F, N) centred at pm (F,)
+    (ola() of magphase.py:34-62) through kernel K2 -> (out_len_max,)."""
+    return ola_centered_batch(*_one(device, frames, pm, nfrms),
+                              out_len_max)[0]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 HANNING = 0
@@ -108,3 +109,28 @@ def anti_ring_window(winlen_l: torch.Tensor, winlen_r: torch.Tensor,
     inside = (q >= 0) & (q <= Lw + Rw)
     fill = torch.where(Lw > 0, 0.0, 1.0)
     return torch.where(inside, w, fill)
+
+
+# ---------------------------------------------------------------------------
+# numpy host forms (the filter-bank matrices of core/fbank.py and test
+# oracles), bit for bit the JAX package's
+
+def hanning_np(M: int) -> np.ndarray:
+    return np.hanning(M)
+
+
+def gen_non_symmetric_win_np(left_len: int, right_len: int,
+                             win_func=np.hanning,
+                             b_norm: bool = False) -> np.ndarray:
+    """Host-side port of libaudio.py:70-84: the left half of
+    win(2L+1) joined to the flipped right half of win(2R+1)."""
+    v_left = win_func(1 + 2 * left_len)[:left_len + 1]
+    v_right = np.flipud(win_func(1 + 2 * right_len)[:right_len + 1])
+    v_win = np.hstack((v_left, v_right[1:]))
+    if b_norm:
+        v_win = v_win / np.sum(v_win)
+    return v_win
+
+
+def voi_noise_window_np(length: int) -> np.ndarray:
+    return np.bartlett(length) ** 2.5

@@ -6,8 +6,9 @@ analysis_lossless_batch and track_f0_batch).
 A request is split into groups under the frame-element budget; each group
 runs two phases on the device.  Phase 1 tracks and places the epochs
 (tracker + kernel K4); the (B,) mark counts come to the host; phase 2
-analyses (kernel K1 + rfft), and for the compressed entry mel-compresses,
-at the realised frame bucket.  This is the JAX package's synced schedule,
+analyses (kernel K1 + rfft), and for the compressed entry optionally
+resamples to the constant 5 ms frame rate and mel-compresses, at the
+realised frame bucket.  This is the JAX package's synced schedule,
 whose outputs it states are bitwise those of its speculative one.  The
 lossless entry's JAX program analyses at the walk capacity and slices the
 frames to the realised bucket afterwards; the port analyses at the
@@ -31,6 +32,7 @@ from ..epochs import tracker
 from ..epochs.placement_device import placement_m_max, track_and_place_batch
 from ..utils.padding import (FRM_STEP, MAX_FRAME_ELEMS, bucket,
                              bucket_frames, bucket_signal, pad_to)
+from ..vocoder import framerate
 from ..vocoder.compressed import (
     _format_kernel, get_num_full_mel_coeffs_from_num_phase_coeffs)
 from ..vocoder.lossless import analysis_core_batch
@@ -156,29 +158,70 @@ def _compress_streams(mag, real, imag, f0, *, mag_dim, phase_dim,
             mim.reshape(B, F, phase_dim), lf0)
 
 
+def _const_resample_batch(mag, real, imag, f0, pm, nfrms, *, crs: float,
+                          fc_max: int):
+    """Variable -> constant 5 ms grid resampling of the batched lossless
+    streams (analysis_compressed's const-rate block, magphase.py:2967-2980).
+    Returns (mag, real, imag, f0) on the grid and the (B,) grid counts."""
+    (mc, rc, ic), f0c, n_const = framerate.const_rate_resample_batch(
+        (mag, real, imag), f0, pm, nfrms, const_rate_smpls=crs,
+        fc_max=fc_max)
+    return mc, rc, ic, f0c, n_const
+
+
+def _fc_max(S: int, fs: int, b_const_rate: bool) -> int:
+    """The constant-rate frame capacity of signal bucket S (0: variable
+    rate)."""
+    if not b_const_rate:
+        return 0
+    return bucket(int(np.ceil(S / (fs * 5.0 / 1000.0))), FRM_STEP)
+
+
 def _analyze_compress_impl(sigs, marks, flags, n_marks, n_sigs, *, fs: int,
                            fft_len: int, F: int, mag_dim: int,
                            phase_dim: int, mag_dim_ph: int, alpha: float,
-                           alpha_phase: float, feats_f16: bool = False):
-    """Phase 2: analysis + mel compression at the realised frame bucket F.
-    Returns (mag_mel_log, real_mel, imag_mel, lf0, shift), (B, F, ...);
-    with ``feats_f16`` the mel streams are rounded through float16, lf0 and
+                           alpha_phase: float, fc_max: int = 0,
+                           feats_f16: bool = False):
+    """Phase 2: analysis + mel compression at the realised frame bucket F;
+    with ``fc_max`` > 0 the streams are first resampled to the constant
+    5 ms grid.  Returns (mag_mel_log, real_mel, imag_mel, lf0, shift,
+    n_valid), (B, F or fc_max, ...), n_valid the (B,) row counts; with
+    ``feats_f16`` the mel streams are rounded through float16, lf0 and
     shift stay float32/int."""
+    pm = marks[:, :F]
     mag, real, imag, f0, shift = analysis_core_batch(
-        sigs, marks[:, :F], n_marks, n_sigs, flags[:, :F], fft_len=fft_len,
-        fs=fs)
+        sigs, pm, n_marks, n_sigs, flags[:, :F], fft_len=fft_len, fs=fs)
+    n_valid = n_marks
+    if fc_max > 0:
+        mag, real, imag, f0, n_valid = _const_resample_batch(
+            mag, real, imag, f0, pm, n_marks, crs=fs * 5.0 / 1000.0,
+            fc_max=fc_max)
     mml, mrm, mim, lf0 = _compress_streams(
         mag, real, imag, f0, mag_dim=mag_dim, phase_dim=phase_dim,
         mag_dim_ph=mag_dim_ph, alpha=alpha, alpha_phase=alpha_phase)
     if feats_f16:
         mml, mrm, mim = (x.to(torch.float16) for x in (mml, mrm, mim))
-    return mml, mrm, mim, lf0, shift
+    return mml, mrm, mim, lf0, shift, n_valid
 
 
-def _check_options(b_const_rate, mesh, feat_dtype) -> None:
-    if b_const_rate:
-        raise ValueError("b_const_rate=True: constant frame rate output is "
-                         "not ported")
+def _per_utterance(mml, mrm, mim, lf0, shift, n_valid, n_marks, n_real):
+    """Host copies of phase 2's outputs, one (mag_mel_log, real_mel,
+    imag_mel, lf0, shift) tuple per real utterance: n_valid[b] rows of the
+    streams, n_marks[b] shifts."""
+    mml, mrm, mim, lf0, shift = (x.cpu().numpy()
+                                 for x in (mml, mrm, mim, lf0, shift))
+    out = []
+    for b in range(n_real):
+        n = int(n_valid[b])
+        out.append((mml[b, :n].astype(np.float64),
+                    mrm[b, :n].astype(np.float64),
+                    mim[b, :n].astype(np.float64),
+                    lf0[b, :n].astype(np.float64),
+                    shift[b, :int(n_marks[b])].astype(np.int64)))
+    return out
+
+
+def _check_options(mesh, feat_dtype) -> None:
     if mesh is not None:
         raise ValueError("mesh must be None: multi-device analysis is not "
                          "supported")
@@ -189,8 +232,8 @@ def _check_options(b_const_rate, mesh, feat_dtype) -> None:
 
 
 def _analyze_tracked_group(group, fs, *, fft_len, mag_dim, phase_dim,
-                           mag_dim_ph, alpha, alpha_phase, feats_f16,
-                           device):
+                           mag_dim_ph, alpha, alpha_phase, b_const_rate,
+                           feats_f16, device):
     """Both phases for one budget group of the tracked branch."""
     global capacity_fallbacks
     signals_g, host, S, Tmax, m_max, n_real = _host_signal_batch(
@@ -200,20 +243,12 @@ def _analyze_tracked_group(group, fs, *, fft_len, mag_dim, phase_dim,
         sigs, n_sigs, n_frames, fs=fs, n_frames_max=Tmax, m_max=m_max)
     nm = n_marks.cpu().numpy()
     Fa = min(m_max, bucket_frames(int(nm.max())))
-    mml, mrm, mim, lf0, shift = _analyze_compress_impl(
+    *outs, n_valid = _analyze_compress_impl(
         sigs, marks, flags, n_marks, n_sigs, fs=fs, fft_len=fft_len, F=Fa,
         mag_dim=mag_dim, phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
-        alpha=alpha, alpha_phase=alpha_phase, feats_f16=feats_f16)
-    mml, mrm, mim, lf0, shift = (x.cpu().numpy()
-                                 for x in (mml, mrm, mim, lf0, shift))
-    out = []
-    for b in range(n_real):
-        n = int(nm[b])
-        out.append((mml[b, :n].astype(np.float64),
-                    mrm[b, :n].astype(np.float64),
-                    mim[b, :n].astype(np.float64),
-                    lf0[b, :n].astype(np.float64),
-                    shift[b, :n].astype(np.int64)))
+        alpha=alpha, alpha_phase=alpha_phase,
+        fc_max=_fc_max(S, fs, b_const_rate), feats_f16=feats_f16)
+    out = _per_utterance(*outs, n_valid.cpu().numpy(), nm, n_real)
 
     # a walk that hit its capacity (pathological mark density) is redone
     # with the host walk and the given-epochs branch, as the JAX package
@@ -228,7 +263,7 @@ def _analyze_tracked_group(group, fs, *, fft_len, mag_dim, phase_dim,
         fixed = analysis_compressed_batch(
             [signals_g[b] for b in trunc], fs, mag_dim=mag_dim,
             phase_dim=phase_dim, fft_len=fft_len, alpha_phase=alpha_phase,
-            epochs=eps, device=device)
+            b_const_rate=b_const_rate, epochs=eps, device=device)
         for j, b in enumerate(trunc):
             out[b] = fixed[j]
     return out
@@ -244,7 +279,10 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
                               device="cuda"):
     """Batched compressed analysis of waveforms.  Returns a list of
     (mag_mel_log (n, mag_dim), real_mel (n, phase_dim), imag_mel,
-    lf0 (n,)) float64 and shift (n,) int64 numpy arrays, one per signal.
+    lf0 (n,)) float64 and shift (n,) int64 numpy arrays, one per signal;
+    with ``b_const_rate`` the streams are on the constant 5 ms grid while
+    shift stays the variable-rate track (analysis_compressed's contract,
+    magphase.py:2947-2988).
 
     ``epochs=None``: the built-in tracker places the epochs (phase 1),
     then analysis + compression run at the realised frame bucket (phase
@@ -254,10 +292,10 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
     as in the JAX package, that branch returns float32 streams whatever
     ``feat_dtype`` says.  ``device``: where the work runs.
 
-    Not ported, each raising ValueError: ``b_const_rate=True``, a
-    ``mesh``, ``feat_dtype=np.uint8`` and any MAGPHASE_TRACKER_WHITEN other
-    than 'none'."""
-    _check_options(b_const_rate, mesh, feat_dtype)
+    Not ported, each raising ValueError: a ``mesh``,
+    ``feat_dtype=np.uint8`` and any MAGPHASE_TRACKER_WHITEN other than
+    'none'."""
+    _check_options(mesh, feat_dtype)
     device = torch.device(device)
     alpha = define_alpha(fs)
     if fft_len is None:
@@ -267,7 +305,8 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
     mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
         define_crossfade_params(fs)[0], phase_dim, alpha_phase, fs)
     kw = dict(fft_len=fft_len, mag_dim=mag_dim, phase_dim=phase_dim,
-              mag_dim_ph=mag_dim_ph, alpha=alpha, alpha_phase=alpha_phase)
+              mag_dim_ph=mag_dim_ph, alpha=alpha, alpha_phase=alpha_phase,
+              b_const_rate=b_const_rate)
 
     if epochs is None:
         feats_f16 = np.dtype(feat_dtype) == np.float16
@@ -285,20 +324,22 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
                 signals[i:i + max_b], fs, mag_dim=mag_dim,
                 phase_dim=phase_dim, fft_len=fft_len,
                 epochs=epochs[i:i + max_b], alpha_phase=alpha_phase,
-                device=device))
+                b_const_rate=b_const_rate, device=device))
         return out
     rows, nfrms, _ = _given_epochs_rows(signals, epochs, fs, max_b, device)
+    sig, pm, nfrms_d = rows[:3]
     mag, real, imag, f0, shift = analysis_core_batch(*rows, fft_len=fft_len,
                                                      fs=fs)
+    n_valid = nfrms_d
+    if b_const_rate:
+        mag, real, imag, f0, n_valid = _const_resample_batch(
+            mag, real, imag, f0, pm, nfrms_d, crs=fs * 5.0 / 1000.0,
+            fc_max=_fc_max(sig.shape[1], fs, True))
     mml, mrm, mim, lf0 = _compress_streams(
         mag, real, imag, f0, **{k: v for k, v in kw.items()
-                                if k != "fft_len"})
-    mml, mrm, mim, lf0, shift = (x.cpu().numpy()
-                                 for x in (mml, mrm, mim, lf0, shift))
-    return [(mml[b, :n].astype(np.float64), mrm[b, :n].astype(np.float64),
-             mim[b, :n].astype(np.float64), lf0[b, :n].astype(np.float64),
-             shift[b, :n].astype(np.int64))
-            for b, n in enumerate(nfrms)]
+                                if k not in ("fft_len", "b_const_rate")})
+    return _per_utterance(mml, mrm, mim, lf0, shift, n_valid.cpu().numpy(),
+                          nfrms, len(nfrms))
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""Mel compression of analysed streams and compressed-feature synthesis,
-batched (port of magphase_tpu/vocoder/compressed.py).
+"""Compressed (low-dimensional) analysis and synthesis — the acoustic-model
+feature path (port of magphase_tpu/vocoder/compressed.py).
 
-Analysis: the mcep mel warp of format_for_modelling (magphase.py:2490-2544)
-as float32 matmuls.  Synthesis: the v2.0 synthesis of magphase.py:825-997
-from mel-compressed features:
-mel-unwarp (matmuls), keyed hash-noise excitation framed pitch-
-synchronously, spectral assembly of the periodic and aperiodic parts,
-irfft (cuFFT on the card), anti-ringing window and PSOLA overlap-add
-(kernel K2).
+Analysis: the mel warp of format_for_modelling (magphase.py:2490-2544),
+mcep or filter bank, as float32 matmuls; analysis_compressed
+(magphase.py:2947-2988) over the lossless analysis, with the optional
+constant 5 ms frame rate.  Synthesis: the v2.0 synthesis of
+magphase.py:825-997 from mel-compressed features: mel-unwarp (matmuls),
+keyed hash-noise excitation framed pitch-synchronously, spectral assembly
+of the periodic and aperiodic parts, irfft (cuFFT on the card),
+anti-ringing window and PSOLA overlap-add (kernel K2);
+synthesis_from_compressed is the single-utterance entry, and the 40 Hz
+output high-pass there is the host float64 IIR.
 
 Synthesis noise is a stateless counter hash of (key, absolute sample
 index) with explicit (B, 2) uint32 keys, bit-identical to the JAX
@@ -15,17 +18,26 @@ package's, so both packages draw the same excitation for the same keys.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from ..config import define_alpha, define_crossfade_params
-from ..core import framing, melcep
-from ..core.filters import butter_highpass_sos, sos_freq_response_rfft
-from ..core.interp import extend_nearest_coeffs
+from ..config import define_alpha, define_crossfade_params, define_fft_len
+from ..core import fbank, framing, melcep
+from ..core.filters import (butter_highpass_coeffs, butter_highpass_sos,
+                            sos_freq_response_rfft)
+from ..core.interp import as_f32, extend_nearest_coeffs
 from ..core.spectral import (build_mel_curve, build_min_phase_from_mag_spec,
                              crossfade_down_win_np, db, protected_log)
 from ..core.windows import HANNING, VOI_NOISE, asym_win_value_select
-from .postfilter import post_filter_tables
+from ..io import wav as wav_io
+from ..io.featfile import read_binfile, write_featfile
+from ..utils.keys import prng_key
+from ..utils.padding import (FRM_STEP, bucket, bucket_signal, pad_rows,
+                             pad_to)
+from . import framerate, lossless
+from .postfilter import post_filter, post_filter_merlin, post_filter_tables
 
 PER_PHASE_TYPES = ("magphase", "linear", "min_phase")
 
@@ -72,13 +84,16 @@ def _format_kernel(m_mag, m_real, m_imag, v_voi, *, mag_dim: int,
                    alpha_phase: float, b_mag_fbank_mel: bool = False):
     """Mel compression of the three spectral streams, rows (n, h) ->
     (n, mag_dim) log-magnitude and (n, phase_dim) phase coefficients
-    (format_for_modelling, magphase.py:2503-2542).  Only the mcep warp is
-    ported: ``b_mag_fbank_mel=True`` raises ValueError."""
+    (format_for_modelling, magphase.py:2503-2542); ``b_mag_fbank_mel``
+    warps the magnitude with the filter bank (magphase.py:2504-2505)
+    instead of the mcep warp."""
     if b_mag_fbank_mel:
-        raise ValueError("b_mag_fbank_mel=True: the filter-bank mel warp is "
-                         "not ported; only the mcep warp is")
-    m_mag_mel_log = protected_log(melcep.sp_mel_warp(
-        m_mag, mag_dim, alpha=alpha, in_type=3))
+        m_mag_mel = fbank.sp_mel_warp_fbank(m_mag, mag_dim, alpha=alpha,
+                                            device=m_mag.device)
+    else:
+        m_mag_mel = melcep.sp_mel_warp(m_mag, mag_dim, alpha=alpha,
+                                       in_type=3)
+    m_mag_mel_log = protected_log(m_mag_mel)
     voi = v_voi[:, None]
     m_real_mel = melcep.sp_mel_warp(m_real, mag_dim_ph, alpha=alpha_phase,
                                     in_type=2)[:, :phase_dim]
@@ -120,6 +135,75 @@ def format_for_modelling(m_mag, m_real, m_imag, v_f0, fs: int,
                           b_mag_fbank_mel=b_mag_fbank_mel)
     return tuple(o.cpu().numpy().astype(np.float64) for o in outs) + (
         v_lf0_smth,)
+
+
+def analysis_compressed(wav_file: str, fft_len: int | None = None,
+                        mag_dim: int = 60, phase_dim: int = 10,
+                        b_const_rate: bool = False,
+                        b_mag_fbank_mel: bool = False,
+                        alpha_phase: float | None = None,
+                        est_file: str | None = None,
+                        pm_sec=None, voi=None, *, device="cuda"):
+    """magphase.py:2947-2988: the lossless analysis of one wav, optionally
+    resampled to the constant 5 ms frame rate, then mel-compressed.
+    Returns (mag_mel_log, real_mel, imag_mel, lf0, shift, fs, fft_len);
+    with ``b_const_rate`` the streams are on the 5 ms grid and shift stays
+    the variable-rate track.
+
+    ``b_mag_fbank_mel``: compress mag with the filter-bank warp.  The
+    reference accepts the flag (magphase.py:2948) but drops it
+    (format_for_modelling is called without it at 2985); it is forwarded
+    here, as the JAX package does."""
+    m_mag, m_real, m_imag, v_f0, fs, v_shift = lossless.analysis_lossless(
+        wav_file, fft_len=fft_len, est_file=est_file, pm_sec=pm_sec, voi=voi,
+        device=device)
+
+    if b_const_rate:
+        const_rate_ms = 5.0
+        v_pm = np.cumsum(v_shift)
+
+        def const(m, pm=v_pm):
+            return framerate.interp_from_variable_to_const_frm_rate(
+                m, pm, const_rate_ms, fs, device=device).cpu().numpy()
+
+        m_mag, m_real, m_imag = const(m_mag), const(m_real), const(m_imag)
+        # voiced-only f0 interpolation (magphase.py:2976-2980); an
+        # all-unvoiced utterance raises IndexError here, as in the
+        # reference
+        vb_voi = v_f0 > 1.0
+        v_f0_i = const(np.r_[v_f0[vb_voi][0], v_f0[vb_voi], v_f0[vb_voi][-1]],
+                       np.r_[0, v_pm[vb_voi], v_pm[-1]]).squeeze()
+        v_voi_i = const(vb_voi.astype(np.float64)) > 0.5
+        v_f0 = v_f0_i * v_voi_i
+
+    m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0 = format_for_modelling(
+        m_mag, m_real, m_imag, v_f0, fs, mag_dim=mag_dim,
+        phase_dim=phase_dim, b_mag_fbank_mel=b_mag_fbank_mel,
+        alpha_phase=alpha_phase, device=device)
+    fft_len = 2 * (m_mag.shape[1] - 1)
+    return m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0, v_shift, fs, fft_len
+
+
+def analysis_for_acoustic_modelling(wav_file: str, out_dir: str,
+                                    fft_len: int | None = None,
+                                    mag_dim: int = 60, phase_dim: int = 10,
+                                    b_const_rate: bool = False, *,
+                                    device="cuda", **kw) -> None:
+    """magphase.py:2992-3022: analysis_compressed written to
+    <file id>.{mag,real,imag,lf0[,shift]} in ``out_dir`` (without the
+    reference's ``alpha_phase=b_mag_fbank_mel`` argument slip at 3010)."""
+    (m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0, v_shift, fs,
+     fft_len) = analysis_compressed(wav_file, fft_len=fft_len,
+                                    mag_dim=mag_dim, phase_dim=phase_dim,
+                                    b_const_rate=b_const_rate, device=device,
+                                    **kw)
+    file_id = os.path.basename(wav_file).split(".")[0]
+    write_featfile(m_mag_mel_log, out_dir, file_id + ".mag")
+    write_featfile(m_real_mel, out_dir, file_id + ".real")
+    write_featfile(m_imag_mel, out_dir, file_id + ".imag")
+    write_featfile(v_lf0, out_dir, file_id + ".lf0")
+    if not b_const_rate:
+        write_featfile(v_shift, out_dir, file_id + ".shift")
 
 
 # ---------------------------------------------------------------------------
@@ -180,20 +264,42 @@ class SynthesisTables(torch.nn.Module):
         buf("pf_tilt", pf[1])
 
 
+def phase_uncompress_type1_mcep(m_real_mel, m_imag_mel, alpha: float,
+                                fft_len: int, fs: int, *, device="cuda"):
+    """magphase.py:1219-1235: nearest-extend the phase_dim coefficients to
+    mag_dim_for_phase_comp, then mel-unwarp, on ``device``."""
+    m_real_mel = as_f32(m_real_mel, device)
+    m_imag_mel = as_f32(m_imag_mel, device)
+    mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
+        define_crossfade_params(fs)[0], m_real_mel.shape[1], alpha, fs)
+    h = 1 + fft_len // 2
+    return tuple(melcep.sp_mel_unwarp(extend_nearest_coeffs(m, mag_dim_ph),
+                                      h, alpha=alpha, in_type="log")
+                 for m in (m_real_mel, m_imag_mel))
+
+
 def _unwarp_kernel(m_mag_mel_log, m_real_mel, m_imag_mel, *, fft_len: int,
                    mag_dim_ph: int, alpha: float, alpha_phase: float,
+                   b_fbank_mel: bool = False,
                    tables: SynthesisTables | None = None):
     """Mel-unwarp of the three streams to full resolution
     (magphase.py:850-858), in float32 whatever the input dtype (float16
-    features included).  Rows (..., dim) -> (..., fft_len//2+1)."""
+    features included).  Rows (..., dim) -> (..., fft_len//2+1).
+    ``b_fbank_mel`` unwarps mag through the filter bank
+    (magphase.py:851-852) instead of the mcep cosine matrix."""
     h = fft_len // 2 + 1
     f32 = torch.float32
     cos_mag = cos_ph = None
     if tables is not None:
         cos_mag, cos_ph = tables.cos_mag, tables.cos_ph
-    m_mag = torch.exp(melcep.sp_mel_unwarp(m_mag_mel_log.to(f32), h,
-                                           alpha=alpha, in_type="log",
-                                           cosmat=cos_mag))
+    if b_fbank_mel:
+        m_mag = torch.exp(fbank.sp_mel_unwarp_fbank(
+            m_mag_mel_log.to(f32), h, alpha=alpha,
+            device=m_mag_mel_log.device))
+    else:
+        m_mag = torch.exp(melcep.sp_mel_unwarp(m_mag_mel_log.to(f32), h,
+                                               alpha=alpha, in_type="log",
+                                               cosmat=cos_mag))
     m_real_ext = extend_nearest_coeffs(m_real_mel.to(f32), mag_dim_ph)
     m_imag_ext = extend_nearest_coeffs(m_imag_mel.to(f32), mag_dim_ph)
     m_real = melcep.sp_mel_unwarp(m_real_ext, h, alpha=alpha_phase,
@@ -244,6 +350,21 @@ def hash_noise_at(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return (x >> 8).to(torch.float32) * (2.0 / (1 << 24)) - 1.0
 
 
+def _keys_tensor(keys, device) -> torch.Tensor:
+    """uint32 key words as an int64 tensor on ``device`` (torch has no
+    uint32 arithmetic on the CPU)."""
+    if torch.is_tensor(keys):
+        return keys.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64)).to(
+        device)
+
+
+def hash_noise_uniform(keys, n: int, *, device="cuda") -> torch.Tensor:
+    """(B, 2) uint32 keys -> (B, n) float32 white noise in [-1, 1)."""
+    return hash_noise_at(_keys_tensor(keys, device),
+                         torch.arange(n, device=device)[None, :])
+
+
 def _noise_frames_direct(keys, pm, nfrms, ns_len, fft_len: int,
                          fam_voiced: int, fam_unvoiced: int, voi, dtype):
     """Windowed pitch-sync NOISE frames computed directly in frame space:
@@ -271,6 +392,7 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
                          ns_len, keys, *, fs: int, fft_len: int,
                          alpha: float, b_voi_ap_win: bool,
                          per_phase_type: str, out_len_max: int,
+                         ns_len_max: int | None = None,
                          out_hpf: str | None = None,
                          tables: SynthesisTables | None = None):
     """The v2.0 synthesis from full-resolution spectra (magphase.py:872-976),
@@ -278,6 +400,10 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
     (B, 2) noise keys, all on one device.  pm/shifts are precomputed
     host-side in float64 (truncation semantics of magphase.py:879-880).
     Returns the un-trimmed OLA buffers (B, out_len_max).
+
+    ``ns_len_max``, the noise buffer's bucket in the JAX package's
+    signature, changes nothing: the noise is drawn directly in frame space
+    as a function of the absolute sample index, so no buffer exists.
 
     ``out_hpf='spectral'`` folds the 40 Hz output high-pass into the frame
     spectra as a per-bin complex gain."""
@@ -363,3 +489,162 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
     # --- anti-ringing window (968-973) + PSOLA overlap-add (976)
     m_frm = framing.apply_anti_ringing(m_frm, shifts, nfrms)
     return framing.ola_centered_batch(m_frm, pm, nfrms, out_len_max)
+
+
+def synthesis_core(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
+                   ns_len, key, *, device="cuda", **kw) -> torch.Tensor:
+    """synthesis_core_batch for one utterance on ``device``: (F, H)
+    spectra, (F,) voicing/pm/shifts, scalar nfrms/ns_len, a (2,) key;
+    ``kw`` are synthesis_core_batch's keywords.  Returns (out_len_max,)."""
+    one = [torch.as_tensor(a, device=device)[None]
+           for a in (m_mag, m_real, m_imag, v_voi, pm, shifts)]
+    counts = [torch.as_tensor(a, device=device).reshape(1)
+              for a in (nfrms, ns_len)]
+    keys = _keys_tensor(key, device).reshape(1, 2)
+    return synthesis_core_batch(*one, *counts, keys, **kw)[0]
+
+
+def synthesis_from_compressed(m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0,
+                              fs: int, fft_len: int | None = None,
+                              b_voi_ap_win: bool = True,
+                              b_fbank_mel: bool = False,
+                              b_const_rate: bool = False,
+                              per_phase_type: str = "magphase",
+                              alpha_phase: float | None = None,
+                              b_out_hpf: bool = True,
+                              key=None, *, device="cuda") -> np.ndarray:
+    """Primary v2.0 synthesis entry (magphase.py:825-997): one utterance's
+    compressed features (numpy) -> float64 waveform.
+
+    ``b_fbank_mel``: mag was compressed with the filter-bank warp
+    (analysis_compressed's ``b_mag_fbank_mel``).  ``b_const_rate``: the
+    features are on the constant 5 ms grid.  ``key``: the (2,) uint32
+    noise key, used as given (``utils.keys.prng_key(0)`` when None).
+    ``b_out_hpf``: the 40 Hz output high-pass as the reference's host
+    float64 IIR.  The unwarp, the synthesis core and the overlap-add
+    (kernel K2) run on ``device``."""
+    from scipy import signal as sp_signal
+
+    alpha = define_alpha(fs)
+    if fft_len is None:
+        fft_len = define_fft_len(fs)
+    if alpha_phase is None:
+        alpha_phase = alpha
+    if key is None:
+        key = prng_key(0)
+    device = torch.device(device)
+
+    m_mag_mel_log = np.asarray(m_mag_mel_log, np.float64)
+    m_real_mel = np.atleast_2d(np.asarray(m_real_mel, np.float64))
+    m_imag_mel = np.atleast_2d(np.asarray(m_imag_mel, np.float64))
+    v_lf0 = np.asarray(v_lf0, np.float64)
+
+    # f0 / voicing / shifts, host float64 (magphase.py:845-848)
+    v_f0 = np.exp(v_lf0)
+    v_voi = v_f0 > 1.0
+    v_shift = framerate.f0_to_shift_np(v_f0, fs)
+    mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
+        define_crossfade_params(fs)[0], m_real_mel.shape[1], alpha_phase, fs)
+
+    # the const->variable shift walk is host math, done before the unwarp
+    # so that the adaptive synthesis FFT sees the realised shifts (the
+    # spectra are interpolated after the unwarp)
+    const_rate_ms = 5.0
+    if b_const_rate:
+        v_shift, v_frm_locs = \
+            framerate.get_shifts_and_frm_locs_from_const_shifts(
+                v_shift, const_rate_ms, fs)
+    fft_syn = synthesis_fft_len(
+        fft_len, max_pitch_sync_framelen(framerate.truncate_shifts(v_shift)))
+
+    # mel-unwarp (850-858) of the features rounded to float16, as the
+    # batched path uploads them: the two entries then compute from the
+    # same inputs
+    n_in = m_mag_mel_log.shape[0]
+    Fin = bucket(n_in, FRM_STEP)
+
+    def f16(a):
+        return torch.from_numpy(pad_to(a.astype(np.float16), Fin)).to(device)
+
+    m_mag, m_real, m_imag = (x[:n_in] for x in _unwarp_kernel(
+        f16(m_mag_mel_log), f16(m_real_mel), f16(m_imag_mel),
+        fft_len=fft_syn, mag_dim_ph=mag_dim_ph, alpha=alpha,
+        alpha_phase=alpha_phase, b_fbank_mel=b_fbank_mel))
+
+    # constant -> variable frame rate on the unwarped spectra (861-870)
+    if b_const_rate:
+        def variable(m):
+            return framerate.interp_from_const_to_variable_rate(
+                m, v_frm_locs, const_rate_ms, fs, device=device)
+
+        m_mag, m_real, m_imag = variable(m_mag), variable(m_real), \
+            variable(m_imag)
+        v_voi = variable(v_voi.astype(np.float64)).cpu().numpy() > 0.5
+
+    nfrms = int(v_shift.shape[0])
+    v_shift_i = framerate.truncate_shifts(v_shift)   # truncation (879)
+    v_pm = np.cumsum(v_shift_i)                      # shift_to_pm (880)
+    ns_len = int(v_pm[-1] + (v_pm[-1] - v_pm[-2]))
+    out_len = int(v_pm[-1] + (v_pm[-1] - v_pm[-2]) + 1)
+    F = bucket(nfrms, FRM_STEP)
+
+    def rows(a, np_dtype):
+        return torch.from_numpy(pad_to(a.astype(np_dtype), F)).to(device)
+
+    buf = synthesis_core(
+        pad_rows(m_mag, F), pad_rows(m_real, F), pad_rows(m_imag, F),
+        rows(v_voi, np.float32), rows(v_pm, np.int32),
+        rows(v_shift_i, np.int32), nfrms, ns_len, key, device=device, fs=fs,
+        fft_len=fft_syn, alpha=alpha, b_voi_ap_win=b_voi_ap_win,
+        per_phase_type=per_phase_type, out_len_max=bucket_signal(out_len),
+        ns_len_max=bucket_signal(ns_len))
+    v_syn = buf[:out_len].cpu().numpy().astype(np.float64)
+
+    if b_out_hpf:
+        # 4th-order Butterworth high-pass at 40 Hz (magphase.py:990-995),
+        # host float64: its poles sit so close to the unit circle that a
+        # float32 recursion is unstable
+        b, a = butter_highpass_coeffs(4, 40.0, fs)
+        v_syn = sp_signal.lfilter(np.asarray(b), np.asarray(a), v_syn)
+    return v_syn
+
+
+def synthesis_from_acoustic_modelling(in_feats_dir: str, filename_token: str,
+                                      out_syn_dir: str, mag_dim: int,
+                                      phase_dim: int, fs: int,
+                                      fft_len: int | None = None,
+                                      pf_type: str = "no",
+                                      b_const_rate: bool = False,
+                                      key=None, *, device="cuda") -> None:
+    """File-level synthesis entry (magphase.py:3229-3275): reads
+    <token>.{mag,real,imag,lf0} from ``in_feats_dir``, applies the
+    post-filter of ``pf_type`` ('no', 'magphase' or 'merlin') on
+    ``device``, and writes <token>.wav to ``out_syn_dir``."""
+    def feat(ext, dim):
+        return read_binfile(os.path.join(in_feats_dir, filename_token + ext),
+                            dim=dim)
+
+    m_mag_mel_log = feat(".mag", mag_dim)
+    m_real_mel = feat(".real", phase_dim)
+    m_imag_mel = feat(".imag", phase_dim)
+    v_lf0 = feat(".lf0", 1)
+    m_mag_mel_log = post_filtered(m_mag_mel_log, fs, pf_type, device=device)
+    v_syn = synthesis_from_compressed(m_mag_mel_log, m_real_mel, m_imag_mel,
+                                      v_lf0, fs, fft_len=fft_len,
+                                      b_const_rate=b_const_rate, key=key,
+                                      device=device)
+    wav_io.write_audio_file(
+        os.path.join(out_syn_dir, filename_token + ".wav"), v_syn, fs)
+
+
+def post_filtered(m_mag_mel_log, fs: int, pf_type: str, *, device="cuda"):
+    """numpy mel log-magnitudes through the post-filter of ``pf_type``
+    ('no', 'magphase' or 'merlin'), computed in float32 on ``device`` (the
+    JAX package's float32) -> numpy."""
+    if pf_type == "no":
+        return m_mag_mel_log
+    if pf_type not in ("magphase", "merlin"):
+        raise ValueError(pf_type)
+    m = torch.from_numpy(np.asarray(m_mag_mel_log, np.float32)).to(device)
+    pf = post_filter if pf_type == "magphase" else post_filter_merlin
+    return pf(m, fs).cpu().numpy()

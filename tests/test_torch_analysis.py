@@ -273,26 +273,17 @@ def test_format_for_modelling_matches_jax():
 # guards
 
 @pytest.mark.parametrize("bad", [
-    dict(b_const_rate=True), dict(mesh=object()),
-    dict(feat_dtype=np.uint8), dict(feat_dtype=np.float64),
-    dict(env="clip30")])
+    dict(mesh=object()), dict(feat_dtype=np.uint8),
+    dict(feat_dtype=np.float64), dict(env="clip30")])
 def test_unported_analysis_options_raise(bad, monkeypatch):
-    """Constant frame rate, a mesh, uint8 (or any non-float16/32) output and
-    tracker whitening raise ValueError up front."""
+    """A mesh, uint8 (or any non-float16/32) output and tracker whitening
+    raise ValueError up front."""
     env = bad.pop("env", None)
     if env is not None:
         monkeypatch.setenv("MAGPHASE_TRACKER_WHITEN", env)
     with pytest.raises(ValueError):
         tab.analysis_compressed_batch(_signals()[:1], FS, device="cpu",
                                       **bad)
-
-
-def test_fbank_mel_warp_raises():
-    """Only the mcep warp is ported: b_mag_fbank_mel=True raises."""
-    z = np.ones((4, 1025), np.float32)
-    with pytest.raises(ValueError):
-        tcompressed.format_for_modelling(z, z, z, np.zeros(4), FS,
-                                         b_mag_fbank_mel=True, device="cpu")
 
 
 @pytest.mark.parametrize("fn", [
