@@ -32,7 +32,13 @@ it and read just after:
   utterances of 3 s (tracker + K4, K1 + rfft, irfft + K2), each output
   held to its input, the phase split of one group, the card against the
   CPU on 8 utterances, and analysis_lossless_batch from given epochs on
-  the card against the CPU.
+  the card against the CPU;
+- the MagPhaseVocoder facade (the README quickstart) on 4 wavs of 3 s:
+  analyze -> synthesize, the same at the constant frame rate, the
+  filter-bank warp, and analyze_batch(b_const_rate=True) (K1, K2, K4),
+  with K1, K2 and K4 held to their plain versions on the inputs this path
+  gave them, the card against the CPU (each mark that moved logged with
+  both devices' snap signal there), batch == single, and wall times.
 
 ``--profile`` adds a torch.profiler pass over one warm 128-utterance
 serving request, one warm 192-utterance analysis request and one warm
@@ -48,6 +54,7 @@ the CPU.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1095,21 +1102,151 @@ FACADE_WARM_RUNS = 5
 TOL_BATCH_VS_SINGLE = 2e-4
 
 
-def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool):
+def _clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(a) for a in x)
+    return x
+
+
+class _Recorder:
+    """A stand-in for ``orig`` that records each call as (args, kwargs,
+    result), tensors cloned, and passes it on unchanged.  A kernel wrapper
+    counts its launches as ``<its own name>.launches += 1``, which lands
+    on the stand-in while it is in place: ``launches`` reads and writes
+    the wrapper's own count."""
+
+    def __init__(self, orig, calls: list):
+        self._orig, self._calls = orig, calls
+
+    def __call__(self, *args, **kw):
+        a = _clone(args)
+        out = self._orig(*args, **kw)
+        self._calls.append((a, kw, _clone(out)))
+        return out
+
+    @property
+    def launches(self):
+        return self._orig.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._orig.launches = n
+
+
+@contextlib.contextmanager
+def recording(*targets):
+    """Record every call of each (module, name) in ``targets`` under
+    ``name`` in the dict it yields (_Recorder)."""
+    calls = {name: [] for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    for mod, name, orig in saved:
+        setattr(mod, name, _Recorder(orig, calls[name]))
+    try:
+        yield calls
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def check_facade_kernels(calls) -> dict:
+    """K1, K2 and K4 on the facade path's own calls: the plain version on
+    the inputs each call was given, against the result the path got (K1
+    within TOL_FRAMES, K2 and K4 bitwise).  Returns {name: {calls, shapes,
+    max_abs_err}}."""
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    out = {}
+    for name, plain, tol in (("frames", K.frames_plain, TOL_FRAMES),
+                             ("ola", K.ola_plain, 0.0),
+                             ("walk", K4.walk_plain, 0.0)):
+        err, shapes = 0.0, []
+        for i, (args, kw, got) in enumerate(calls[name]):
+            got = got if isinstance(got, tuple) else (got,)
+            ref = plain(*args, **kw)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            e = max(float((g.to(torch.float64) - r.to(torch.float64)).abs()
+                          .max()) for g, r in zip(got, ref))
+            if not (e <= tol and (tol > 0 or all(
+                    torch.equal(g, r) for g, r in zip(got, ref)))):
+                raise AssertionError(f"facade path, {name} call {i} "
+                                     f"{tuple(got[0].shape)}: max |kernel - "
+                                     f"plain| {e:.3g} > {tol}")
+            err = max(err, e)
+            shapes.append(tuple(got[0].shape))
+        out[name] = dict(calls=len(shapes), shapes=sorted(set(shapes)),
+                         max_abs_err=err)
+    return out
+
+
+def _walk_records(calls, name: str) -> list:
+    """Per utterance of the recorded walks: (snap signal, f0 track, frame
+    step in samples), from the host walk (tracker.place_epochs) or K4."""
+    recs = []
+    for args, kw, _ in calls[name]:
+        if name == "place_epochs":
+            _sig, fs, f0, _voi, y_snap, fstep = args
+            recs.append((np.asarray(y_snap), np.asarray(f0), fstep * fs))
+            continue
+        y_snap, f0, _voi, n_sigs, n_frames = (a.cpu().numpy() for a in args)
+        recs += [(y_snap[b, :n_sigs[b]], f0[b, :n_frames[b]],
+                  kw["frame_step"]) for b in range(len(n_sigs))]
+    return recs
+
+
+def _moved_marks(what, pm_g, pm_c, walk_g, walk_c) -> list:
+    """Each mark that the card's walk put elsewhere than the CPU's, with
+    the snap signal of both devices at the two places.  A move is bounded
+    by one period of the local f0 (the CPU tracker's at the previous mark,
+    whose window the walk searched; one sample where that frame is
+    unvoiced).  Both walks take the lowest sample of a window, so where
+    the two searched the same window each device's gap (y(b) - y(a) on the
+    card, y(a) - y(b) on the CPU) is >= 0: the two troughs swap order
+    between the devices, and the gaps add up to exactly how far the two
+    devices' snap signals differ at a and b.  A negative gap means the
+    windows differed (the previous mark or the local f0 did)."""
+    (sg, _, _), (sc, f0c, step) = walk_g, walk_c
+    rows = []
+    for j in np.flatnonzero(pm_g != pm_c):
+        a, b = int(pm_g[j]), int(pm_c[j])
+        t = pm_c[j - 1] if j > 0 else 0
+        f0 = float(f0c[min(len(f0c) - 1, max(0, int(t / step)))])
+        period = FS / f0 if f0 > 0 else 1.0
+        dev_diff = max(abs(float(sg[a]) - float(sc[a])),
+                       abs(float(sg[b]) - float(sc[b])))
+        row = dict(what=what, mark=int(j), card=a, cpu=b, move=a - b,
+                   period=period, y_card=(float(sg[a]), float(sg[b])),
+                   y_cpu=(float(sc[a]), float(sc[b])),
+                   gap_card=float(sg[b]) - float(sg[a]),
+                   gap_cpu=float(sc[a]) - float(sc[b]), dev_diff=dev_diff,
+                   peak=float(np.abs(sc).max()))
+        row["tie"] = min(row["gap_card"], row["gap_cpu"]) >= 0.0
+        if not abs(a - b) <= period:
+            raise AssertionError(f"{what}: mark {j} moved {a - b} samples, "
+                                 f"more than one period ({period:.1f}) of "
+                                 "the local f0")
+        rows.append(row)
+    return rows
+
+
+def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool, walks):
     """Compressed features of one utterance, card against CPU.  The marks
     (cumulative shifts): equal in number, at most MAX_MARK_DIFF_SHARE of
-    them moved.  A walk (the single entry's on the host, K4 in
+    them moved, each by at most one period of the local f0 (_moved_marks;
+    ``walks`` are the card's and the CPU's walk records of the
+    utterance).  A walk (the single entry's on the host, K4 in
     analyze_batch) snaps each voiced mark to the lowest sample of the
     tracker's snap signal in a window; where two troughs there are equal
     within float32 round-off, the card's and the CPU's tracker outputs may
-    pick different ones, so a mark may move by more than one sample (the
-    largest move is logged).  The mel streams within TOL_ANALYSIS_STREAMS
-    and lf0 within
+    pick different ones, so a mark may move by more than one sample (each
+    move is logged with the snap values at both places).  The mel streams
+    within TOL_ANALYSIS_STREAMS and lf0 within
     TOL_ANALYSIS_LF0_REL relative on the rows whose inputs agree: frames
     whose marks agree at f-2 .. f+2, or on the 5 ms grid the rows 0.2 s
     (longer than any unvoiced run of the witnesses, which the voiced-only
     f0 interpolation spans) from every moved mark.  Returns (moved, marks,
-    largest move, streams err, lf0 err, rows)."""
+    largest move, streams err, lf0 err, rows, moved-mark rows)."""
     pm_g, pm_c = np.cumsum(gpu[4]), np.cumsum(cpu[4])
     if len(pm_g) != len(pm_c):
         raise AssertionError(f"{what}: {len(pm_g)} marks on the card against "
@@ -1119,6 +1256,7 @@ def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool):
     if len(moved) > MAX_MARK_DIFF_SHARE * len(pm_c):
         raise AssertionError(f"{what}: {len(moved)} of {len(pm_c)} marks "
                              "moved")
+    ties = _moved_marks(what, pm_g, pm_c, *walks)
     if gpu[0].shape != cpu[0].shape:
         raise AssertionError(f"{what}: shapes {gpu[0].shape} against "
                              f"{cpu[0].shape}")
@@ -1138,7 +1276,8 @@ def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool):
             and np.array_equal(gpu[3] > -1e9, cpu[3] > -1e9)):
         raise AssertionError(f"{what}: card vs CPU streams {s_err:.3g}, lf0 "
                              f"{l_err:.3g} relative, out of bounds")
-    return len(moved), len(pm_c), int(d.max()), s_err, l_err, int(ok.sum())
+    return (len(moved), len(pm_c), int(d.max()), s_err, l_err, int(ok.sum()),
+            ties)
 
 
 def _wav_rel(a, b) -> float:
@@ -1157,9 +1296,13 @@ def run_facade_path(dev, seed: int) -> dict:
     (b_const_rate=True) on the signals; K1, K2 and K4 must have run.  Then
     the card against the CPU (the same calls with device="cpu"), batch ==
     single synthesis, and the cold and warm wall times of analyze and
-    synthesize.  Returns the launch counts."""
+    synthesize.  K1, K2 and K4 are held to their plain versions on the
+    inputs the path gave them (check_facade_kernels), and each mark that
+    moved between card and CPU is logged with both snap signals there.
+    Returns the launch counts and the kernel checks."""
     import tempfile
 
+    from magphase_tpu_torch.epochs import tracker
     from magphase_tpu_torch.io import wav as wav_io
     from magphase_tpu_torch.kernels import framing as K
     from magphase_tpu_torch.kernels import walk as K4
@@ -1212,14 +1355,22 @@ def run_facade_path(dev, seed: int) -> dict:
 
         K.reset_launch_counts()
         K4.reset_launch_counts()
-        feats, outs, (f_c, w_c), (f_fb, w_fb), batch_c, cold = \
-            facade_runs(dev, np.float16)
+        with recording((K, "frames"), (K, "ola"), (K4, "walk"),
+                       (tracker, "place_epochs")) as rec_g:
+            feats, outs, (f_c, w_c), (f_fb, w_fb), batch_c, cold = \
+                facade_runs(dev, np.float16)
         counts = {**K.launch_counts(), **K4.launch_counts()}
         log(f"[facade] launches during the facade path: {counts}")
         for name in ("frames", "ola", "walk"):
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      "facade path")
+        kchecks = check_facade_kernels(rec_g)
+        log("[facade] kernels against their plain versions on the facade "
+            "path's own inputs and results: " + "; ".join(
+                f"{n} {r['calls']} calls at {r['shapes']} max |kernel - "
+                f"plain| {r['max_abs_err']:.3g}" for n, r in kchecks.items())
+            + f" (bounds: frames {TOL_FRAMES}, ola and walk bitwise)")
         for i, (f, w) in enumerate(zip(feats + [f_c, f_fb],
                                        outs + [w_c, w_fb])):
             # at the constant rate the length comes from the backward walk
@@ -1244,30 +1395,60 @@ def run_facade_path(dev, seed: int) -> dict:
         # float32 output (the default float16 rounds card and CPU values
         # that differ by round-off to neighbouring float16 steps)
         t0 = time.perf_counter()
-        c_feats, c_outs, (c_f_c, c_w_c), (c_f_fb, c_w_fb), c_batch_c, \
-            c_cold = facade_runs("cpu", np.float32)
+        with recording((tracker, "place_epochs"), (K4, "walk")) as rec_c:
+            c_feats, c_outs, (c_f_c, c_w_c), (c_f_fb, c_w_fb), c_batch_c, \
+                c_cold = facade_runs("cpu", np.float32)
         dt_cpu = time.perf_counter() - t0
-        batch_c = MagPhaseVocoder(**cfg, b_const_rate=True,
-                                  device=dev).analyze_batch(
-            signals, feat_dtype=np.float32)
+        with recording((K4, "walk")) as rec_b:
+            batch_c = MagPhaseVocoder(**cfg, b_const_rate=True,
+                                      device=dev).analyze_batch(
+                signals, feat_dtype=np.float32)
+        # the walks behind each analysis, card and CPU, in call order
+        # (one batch walk of a group padded past the 4 utterances)
+        if not len(rec_b["walk"]) == len(rec_c["walk"]) == 1:
+            raise AssertionError("analyze_batch: one walk expected")
+        n = len(signals)
+        walks_g = (_walk_records(rec_g, "place_epochs")
+                   + _walk_records(rec_b, "walk")[:n])
+        walks_c = (_walk_records(rec_c, "place_epochs")
+                   + _walk_records(rec_c, "walk")[:n])
         checks = ([(g, c, f"analyze wav {i}", False, True)
                    for i, (g, c) in enumerate(zip(feats, c_feats))]
                   + [(f_c, c_f_c, "analyze b_const_rate", True, True),
                      (f_fb, c_f_fb, "analysis_compressed fbank", False, True)]
                   + [(g, c, f"analyze_batch b_const_rate utt {i}", True, False)
                      for i, (g, c) in enumerate(zip(batch_c, c_batch_c))])
+        if not len(walks_g) == len(walks_c) == len(checks):
+            raise AssertionError(f"facade path: {len(walks_g)} walks on the "
+                                 f"card, {len(walks_c)} on the CPU, "
+                                 f"{len(checks)} analyses")
         moved = {True: 0, False: 0}
         marks = {True: 0, False: 0}
         move = {True: 0, False: 0}
         rows = 0
         s_err = l_err = 0.0
-        for g, c, what, const, host in checks:
-            mv, mk, mx, se, le, nr = _facade_card_vs_cpu(g, c, what, const)
+        ties = []
+        for (g, c, what, const, host), wg, wc in zip(checks, walks_g,
+                                                     walks_c):
+            mv, mk, mx, se, le, nr, tr = _facade_card_vs_cpu(
+                g, c, what, const, (wg, wc))
             moved[host] += mv
             marks[host] += mk
             move[host] = max(move[host], mx)
             rows += nr
             s_err, l_err = max(s_err, se), max(l_err, le)
+            ties += tr
+        for t in ties:
+            log(f"[facade] moved mark {t['mark']} of {t['what']}: card "
+                f"{t['card']}, CPU {t['cpu']} ({t['move']:+d} samples; bound "
+                f"one period {t['period']:.1f}); snap signal at (card's, "
+                f"CPU's) mark: card ({t['y_card'][0]:.9g}, "
+                f"{t['y_card'][1]:.9g}) gap {t['gap_card']:.3g}, CPU "
+                f"({t['y_cpu'][0]:.9g}, {t['y_cpu'][1]:.9g}) gap "
+                f"{t['gap_cpu']:.3g}; card - CPU there up to "
+                f"{t['dev_diff']:.3g}, the signal's peak {t['peak']:.4g}; "
+                f"the two troughs swap order (a tie within round-off): "
+                f"{t['tie']}")
         log(f"[facade] CUDA vs CPU features, {len(checks)} analyses: marks "
             f"moved {moved[True]} of {marks[True]} by the host walk (largest "
             f"move {move[True]} samples), {moved[False]} of {marks[False]} "
@@ -1330,7 +1511,7 @@ def run_facade_path(dev, seed: int) -> dict:
                 f"{c:.1f} ms, warm median {np.median(w):.1f} ms of "
                 f"{FACADE_WARM_RUNS} (min {min(w):.1f}, max {max(w):.1f}); "
                 f"the CPU's first call {c_cold[0 if name == 'analyze' else 1]:.1f} ms")
-    return counts
+    return counts, kchecks
 
 
 def main() -> None:
@@ -1711,7 +1892,9 @@ def main() -> None:
                                  S_a)
     run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois,
                             (t_sig, t_nsig, t_nfrm), Tmax_a, m_max_a, S_a)
-    counts_f = run_facade_path(dev, args.seed)
+    counts_f, facade_checks = run_facade_path(dev, args.seed)
+    for name, r in facade_checks.items():
+        results[name]["facade"] = r
 
     if args.profile:
         profile_request(feats, keys_all, dev)
@@ -1730,7 +1913,8 @@ def main() -> None:
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: r[k] for k in ("bytes_bound_ms",
                                          "chain_ns_per_step",
-                                         "padded_bound_ms", "copy_synthesis")
+                                         "padded_bound_ms", "copy_synthesis",
+                                         "facade")
                        if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))

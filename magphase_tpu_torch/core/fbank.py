@@ -95,14 +95,21 @@ def _fbank_curve_matrix_np(alpha: float, nbins_total: int, max_bin: int,
     return _fbank_from_centres(v_cntrs, max_bin, nbands)
 
 
-def _apply(m: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
-    return mm(m, torch.tensor(matrix, dtype=m.dtype, device=m.device))
+@functools.lru_cache(maxsize=32)
+def _matrix(builder, args: tuple, device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The matrix ``builder(*args)`` on ``device``, uploaded once."""
+    return torch.tensor(builder(*args), dtype=dtype, device=device)
+
+
+def _apply(m: torch.Tensor, builder, *args) -> torch.Tensor:
+    return mm(m, _matrix(builder, args, m.device, m.dtype))
 
 
 def apply_fbank(m_mag, alpha: float, nbands: int, *,
                 device="cuda") -> torch.Tensor:
     m = as_f32(m_mag, device)
-    return _apply(m, _fbank_matrix_np(alpha, m.shape[1], nbands))
+    return _apply(m, _fbank_matrix_np, alpha, m.shape[1], nbands)
 
 
 def sp_mel_warp_fbank(m_mag, n_melbands: int, alpha: float = 0.77, *,
@@ -159,8 +166,8 @@ def unwarp_from_fbank(m_mag_mel, alpha: float, nbins: int,
                       device="cuda") -> torch.Tensor:
     """libaudio.py:848-874 as a matmul."""
     m = as_f32(m_mag_mel, device)
-    return _apply(m, _unwarp_interp_matrix_np(alpha, nbins, m.shape[1],
-                                              interp_kind))
+    return _apply(m, _unwarp_interp_matrix_np, alpha, nbins, m.shape[1],
+                  interp_kind)
 
 
 def sp_mel_unwarp_fbank(m_mag_mel, nbins: int, alpha: float = 0.77, *,
@@ -173,8 +180,8 @@ def unwarp_from_fbank_curve(m_mel, alpha: float, nbins_total: int,
                             max_bin: int, kind: str = "quadratic", *,
                             device="cuda") -> torch.Tensor:
     m = as_f32(m_mel, device)
-    return _apply(m, _unwarp_curve_matrix_np(alpha, nbins_total, max_bin,
-                                             m.shape[1], kind))
+    return _apply(m, _unwarp_curve_matrix_np, alpha, nbins_total, max_bin,
+                  m.shape[1], kind)
 
 
 def apply_fbank_curve(m_data, alpha: float, nbins_total: int, max_bin: int,
@@ -182,5 +189,5 @@ def apply_fbank_curve(m_data, alpha: float, nbins_total: int, max_bin: int,
     """apply_fbank ('average' mode) over the first ``max_bin`` bins of the
     full warp curve; columns beyond max_bin are ignored."""
     m = as_f32(m_data, device)
-    return _apply(m[:, :max_bin], _fbank_curve_matrix_np(
-        alpha, nbins_total, max_bin, nbands))
+    return _apply(m[:, :max_bin], _fbank_curve_matrix_np, alpha, nbins_total,
+                  max_bin, nbands)

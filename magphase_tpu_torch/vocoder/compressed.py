@@ -109,9 +109,10 @@ def format_for_modelling(m_mag, m_real, m_imag, v_f0, fs: int,
                          b_mag_fbank_mel: bool = False,
                          alpha_phase: float | None = None, *,
                          device="cuda"):
-    """magphase.py:2490-2544: numpy lossless streams (n, h) and f0 (n,) in,
-    float64 numpy (mag_mel_log, real_mel, imag_mel, lf0) out.  The median-
-    smoothed lf0 is host float64 (scipy), the mel warps run on ``device``."""
+    """magphase.py:2490-2544: lossless streams (n, h) (numpy, or tensors)
+    and numpy f0 (n,) in, float64 numpy (mag_mel_log, real_mel, imag_mel,
+    lf0) out.  The median-smoothed lf0 is host float64 (scipy), the mel
+    warps run on ``device``."""
     from scipy import signal as sp_signal
 
     alpha = define_alpha(fs)
@@ -126,7 +127,7 @@ def format_for_modelling(m_mag, m_real, m_imag, v_f0, fs: int,
     v_lf0_smth[~np.isfinite(v_lf0_smth)] = -1.0e10
 
     def dev(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+        return as_f32(a, device).to(torch.float32)
 
     outs = _format_kernel(dev(m_mag), dev(m_real), dev(m_imag), dev(v_voi),
                           mag_dim=mag_dim, phase_dim=phase_dim,
@@ -159,22 +160,21 @@ def analysis_compressed(wav_file: str, fft_len: int | None = None,
         device=device)
 
     if b_const_rate:
-        const_rate_ms = 5.0
+        # the voiced-only f0 interpolation (magphase.py:2976-2980) indexes
+        # the first voiced frame: an all-unvoiced utterance raises
+        # IndexError, as in the reference
+        if not np.any(np.asarray(v_f0) > 1.0):
+            raise IndexError("analysis_compressed(b_const_rate=True): no "
+                             "voiced frame to interpolate f0 from")
         v_pm = np.cumsum(v_shift)
-
-        def const(m, pm=v_pm):
-            return framerate.interp_from_variable_to_const_frm_rate(
-                m, pm, const_rate_ms, fs, device=device).cpu().numpy()
-
-        m_mag, m_real, m_imag = const(m_mag), const(m_real), const(m_imag)
-        # voiced-only f0 interpolation (magphase.py:2976-2980); an
-        # all-unvoiced utterance raises IndexError here, as in the
-        # reference
-        vb_voi = v_f0 > 1.0
-        v_f0_i = const(np.r_[v_f0[vb_voi][0], v_f0[vb_voi], v_f0[vb_voi][-1]],
-                       np.r_[0, v_pm[vb_voi], v_pm[-1]]).squeeze()
-        v_voi_i = const(vb_voi.astype(np.float64)) > 0.5
-        v_f0 = v_f0_i * v_voi_i
+        crs = fs * 5.0 / 1000.0
+        streams, f0_c, n_const = framerate.const_rate_resample_core(
+            (m_mag, m_real, m_imag), v_f0, v_pm, len(v_pm),
+            const_rate_smpls=crs, fc_max=int(np.ceil(v_pm[-1] / crs)),
+            device=device)
+        n_const = int(n_const)
+        m_mag, m_real, m_imag = (m[:n_const] for m in streams)
+        v_f0 = f0_c[:n_const].cpu().numpy()
 
     m_mag_mel_log, m_real_mel, m_imag_mel, v_lf0 = format_for_modelling(
         m_mag, m_real, m_imag, v_f0, fs, mag_dim=mag_dim,

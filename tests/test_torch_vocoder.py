@@ -292,3 +292,15 @@ def test_fbank_functions_match_jax(fn):
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
+
+
+def test_fbank_matrix_uploaded_once_per_device():
+    """A warp or unwarp builds its (bins, bands) matrix on the tensor's
+    device once and reuses it: a second call of the same configuration
+    adds no entry to the cache and returns the same values."""
+    mag = _mag(np.random.default_rng(11), 8, NBINS)
+    first = _np(tfbank.sp_mel_warp_fbank(mag, NBANDS, 0.77, **CPU))
+    size = tfbank._matrix.cache_info().currsize
+    again = _np(tfbank.sp_mel_warp_fbank(mag, NBANDS, 0.77, **CPU))
+    assert tfbank._matrix.cache_info().currsize == size
+    np.testing.assert_array_equal(again, first)
