@@ -38,7 +38,16 @@ it and read just after:
   filter-bank warp, and analyze_batch(b_const_rate=True) (K1, K2, K4),
   with K1, K2 and K4 held to their plain versions on the inputs this path
   gave them, the card against the CPU (each mark that moved logged with
-  both devices' snap signal there), batch == single, and wall times.
+  both devices' snap signal there), batch == single, and wall times;
+- the corpus CLI (python -m magphase_tpu_torch.cli) on 64 wavs of
+  2.5-3 s (run_cli_path): extract --batch-size 32 with one unreadable wav
+  on the crash list (K4, K1), generate --batch-size 16 (pipelined, PCM16;
+  K2), at batch size 5, through the fallback runner and with the int8
+  transport, the constant frame rate, convert-labels, eval, and a serve
+  daemon with two generate --server requests; K1, K2 and K4 held to their
+  plain versions on the CLI's own calls, byte-identical wavs across the
+  runners, batch sizes and requests, no hidden fallback, card against
+  CPU, and wall time, audio-s/s and peak memory per command.
 
 ``--profile`` adds a torch.profiler pass over one warm 128-utterance
 serving request, one warm 192-utterance analysis request and one warm
@@ -1150,11 +1159,11 @@ def recording(*targets):
             setattr(mod, name, orig)
 
 
-def check_facade_kernels(calls) -> dict:
-    """K1, K2 and K4 on the facade path's own calls: the plain version on
-    the inputs each call was given, against the result the path got (K1
-    within TOL_FRAMES, K2 and K4 bitwise).  Returns {name: {calls, shapes,
-    max_abs_err}}."""
+def check_path_kernels(calls, what: str) -> dict:
+    """K1, K2 and K4 on a path's own calls (recorded by ``recording``): the
+    plain version on the inputs each call was given, against the result
+    the path got (K1 within TOL_FRAMES, K2 and K4 bitwise).  Returns
+    {name: {calls, shapes, max_abs_err}}."""
     from magphase_tpu_torch.kernels import framing as K
     from magphase_tpu_torch.kernels import walk as K4
     out = {}
@@ -1170,7 +1179,7 @@ def check_facade_kernels(calls) -> dict:
                           .max()) for g, r in zip(got, ref))
             if not (e <= tol and (tol > 0 or all(
                     torch.equal(g, r) for g, r in zip(got, ref)))):
-                raise AssertionError(f"facade path, {name} call {i} "
+                raise AssertionError(f"{what} path, {name} call {i} "
                                      f"{tuple(got[0].shape)}: max |kernel - "
                                      f"plain| {e:.3g} > {tol}")
             err = max(err, e)
@@ -1230,7 +1239,8 @@ def _moved_marks(what, pm_g, pm_c, walk_g, walk_c) -> list:
     return rows
 
 
-def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool, walks):
+def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool, walks,
+                        f16: bool = False):
     """Compressed features of one utterance, card against CPU.  The marks
     (cumulative shifts): equal in number, at most MAX_MARK_DIFF_SHARE of
     them moved, each by at most one period of the local f0 (_moved_marks;
@@ -1242,7 +1252,10 @@ def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool, walks):
     pick different ones, so a mark may move by more than one sample (each
     move is logged with the snap values at both places).  The mel streams
     within TOL_ANALYSIS_STREAMS and lf0 within
-    TOL_ANALYSIS_LF0_REL relative on the rows whose inputs agree: frames
+    TOL_ANALYSIS_LF0_REL relative on the rows whose inputs agree (with
+    ``f16``, streams rounded through float16, beyond one float16 step of
+    the CPU's value, where round-off may land on the neighbouring step):
+    frames
     whose marks agree at f-2 .. f+2, or on the 5 ms grid the rows 0.2 s
     (longer than any unvoiced run of the witnesses, which the voiced-only
     f0 interpolation spans) from every moved mark.  Returns (moved, marks,
@@ -1267,8 +1280,14 @@ def _facade_card_vs_cpu(gpu, cpu, what: str, const_rate: bool, walks):
             ok &= np.abs(t - m) > 0.2 * FS
     else:
         ok = agreeing_frames(pm_g, pm_c)
-    s_err = max(float(np.abs(gpu[k][ok] - cpu[k][ok]).max(initial=0.0))
-                for k in range(3))
+    def excess(k):
+        d = np.abs(gpu[k][ok] - cpu[k][ok])
+        if f16:
+            d = d - np.spacing(np.abs(cpu[k][ok]).astype(np.float16)
+                               ).astype(np.float64)
+        return float(d.max(initial=0.0))
+
+    s_err = max(excess(k) for k in range(3))
     v = ok & (cpu[3] > -1e9)
     l_err = float(np.max(np.abs(gpu[3][v] - cpu[3][v]) / np.abs(cpu[3][v]),
                          initial=0.0))
@@ -1297,7 +1316,7 @@ def run_facade_path(dev, seed: int) -> dict:
     the card against the CPU (the same calls with device="cpu"), batch ==
     single synthesis, and the cold and warm wall times of analyze and
     synthesize.  K1, K2 and K4 are held to their plain versions on the
-    inputs the path gave them (check_facade_kernels), and each mark that
+    inputs the path gave them (check_path_kernels), and each mark that
     moved between card and CPU is logged with both snap signals there.
     Returns the launch counts and the kernel checks."""
     import tempfile
@@ -1365,7 +1384,7 @@ def run_facade_path(dev, seed: int) -> dict:
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      "facade path")
-        kchecks = check_facade_kernels(rec_g)
+        kchecks = check_path_kernels(rec_g, "facade")
         log("[facade] kernels against their plain versions on the facade "
             "path's own inputs and results: " + "; ".join(
                 f"{n} {r['calls']} calls at {r['shapes']} max |kernel - "
@@ -1511,6 +1530,417 @@ def run_facade_path(dev, seed: int) -> dict:
                 f"{c:.1f} ms, warm median {np.median(w):.1f} ms of "
                 f"{FACADE_WARM_RUNS} (min {min(w):.1f}, max {max(w):.1f}); "
                 f"the CPU's first call {c_cold[0 if name == 'analyze' else 1]:.1f} ms")
+    return counts, kchecks
+
+
+CLI_UTTS = 64
+CLI_SECONDS = (2.5, 2.75, 3.0)       # the corpus's utterance lengths
+CLI_CONST_UTTS = 4
+CLI_CPU_UTTS = 8
+CLI_BAD_AT = 40                      # scp position of the unreadable wav
+# int8 against f16 transport: the JAX package's bound on the relative RMS
+# (tests/test_transfer_encodings.py:test_int8_transport_synthesis_negligible,
+# < 0.02), after the least-squares gain between the two wavs, which are
+# peak-normalised each.  Its MSD bound (< 0.5 dB, taken on its demo
+# corpus) is not held here: on a witness signal of this corpus the JAX
+# package itself measures 0.586 dB, and the port the same within 0.01 dB
+# (tests/test_torch_transport.py::test_int8_msd_matches_jax); the card's
+# int8 wavs are held to the CPU's instead.
+TOL_INT8_REL = 0.02
+
+
+def _wav_tree(d, toks) -> dict:
+    """{token: the wav's bytes} of a generated corpus."""
+    return {t: open(os.path.join(d, t + ".wav"), "rb").read() for t in toks}
+
+
+def _pcm(path) -> np.ndarray:
+    from magphase_tpu_torch.io import read_wav
+    sig, fs = read_wav(path)
+    if fs != FS:
+        raise AssertionError(f"{path}: {fs} Hz")
+    return np.rint(sig * 32768.0).astype(np.int64)
+
+
+def _same_wavs(a: dict, b: dict, what: str) -> None:
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: other tokens")
+    diff = [t for t in a if a[t] != b[t]]
+    if diff:
+        raise AssertionError(f"{what}: {len(diff)} of {len(a)} wavs differ "
+                             f"in their bytes, first {diff[0]}")
+
+
+def run_cli_path(dev, seed: int) -> tuple:
+    """Path 6, the corpus CLI (python -m magphase_tpu_torch.cli) at full
+    width: CLI_UTTS witness signals of 2.5-3 s at 48 kHz written as PCM16
+    wavs with an scp (one unreadable wav among them), fft_len 4096, 60/45
+    dims, pf_type magphase.  With the launch counts from 0, in-process
+    through cli.main: extract --batch-size 32 (K4, K1; the bad wav on the
+    crash list, rc 1, its chunk-mates done), generate --batch-size 16
+    (pipelined, pcm16; K2), the same at --batch-size 5, through the
+    fallback runner, and with --transport int8, extract --const-rate and
+    generate --const-rate on CLI_CONST_UTTS utterances, convert-labels on
+    synthetic labels, eval of the round trip; then a `serve` daemon as a
+    subprocess with two generate --server requests.  Checks: K1, K2 and K4
+    held to their plain versions on every call of a second, recorded run
+    of the extract, the batch-16 generate and the const-rate generate
+    (each byte-identical to its first run); byte-identical wavs
+    (pipelined, fallback, batch 16 and 5, both serve requests); no token
+    through the fallback runner or a retry in the other runs; the native
+    reader in use; card against CPU (generate, f16 and int8, and extract
+    of CLI_CPU_UTTS utterances with --device cpu); int8 against f16.
+    Returns the launch counts (the timed runs') and the kernel checks."""
+    import io
+    import select
+    import tempfile
+
+    from magphase_tpu_torch import cli
+    from magphase_tpu_torch.io import native, read_binfile, read_wav
+    from magphase_tpu_torch.io import wav as wav_io
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    from magphase_tpu_torch.parallel import analysis_batch as ab
+    from magphase_tpu_torch.parallel import batch
+    from magphase_tpu_torch.utils import corpus
+    from magphase_tpu_torch.utils.eval import mel_spectral_distortion
+
+    if not (native.build() and native.available()):
+        raise AssertionError("the native corpus-IO library did not build "
+                             "or load: extract would read with the Python "
+                             "codec")
+    rng = np.random.default_rng(seed + 2000)
+    sigs = make_witness_signals(rng, CLI_UTTS, max(CLI_SECONDS))[0]
+    sigs = [x[:int(CLI_SECONDS[i % len(CLI_SECONDS)] * FS)]
+            for i, x in enumerate(sigs)]
+    toks = [f"w{i:03d}" for i in range(CLI_UTTS)]
+    audio_s = sum(len(x) for x in sigs) / FS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        def d(name):
+            return os.path.join(tmp, name)
+
+        os.makedirs(d("wavs"))
+        for t, x in zip(toks, sigs):
+            wav_io.write_wav(d(f"wavs/{t}.wav"), x, FS)
+        with open(d("wavs/broken.wav"), "wb") as f:
+            f.write(b"RIFFgarbage")
+
+        def scp(name, tokens):
+            with open(d(name), "w") as f:
+                f.write("\n".join(tokens) + "\n")
+            return d(name)
+
+        scp_ex = scp("extract.scp", toks[:CLI_BAD_AT] + ["broken"]
+                     + toks[CLI_BAD_AT:])
+        scp_all = scp("all.scp", toks)
+        scp_cpu = scp("cpu.scp", toks[:CLI_CPU_UTTS])
+        scp_const = scp("const.scp", toks[:CLI_CONST_UTTS])
+
+        def run(argv, what, rc_want=0, audio=audio_s):
+            """One in-process CLI call: rc checked; wall seconds,
+            audio-s/s and peak device memory logged."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if rc != rc_want:
+                raise AssertionError(f"cli {what}: rc {rc}, expected "
+                                     f"{rc_want}")
+            log(f"[cli] {what}: {dt:.3f} s wall, {audio / dt:.1f} audio-s/s "
+                f"({audio:.1f} audio-s), peak device memory "
+                f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f}"
+                f" GiB above the {base / 2 ** 30:.3f} GiB held before it")
+            return dt
+
+        def gen(out, *extra, what, scp_path=scp_all, feats="feats",
+                audio=audio_s):
+            """generate, with the calls of the pipelined entry and of the
+            fallback runner counted: one pipelined call and no fallback."""
+            with recording((batch, "synthesis_batches_pipelined"),
+                           (corpus, "run_corpus_batched")) as rec:
+                run(["generate", "--scp", scp_path, "--feats-dir", d(feats),
+                     "--out-dir", d(out), "--batch-size", "16",
+                     "--pf-type", "magphase", *extra], what, audio=audio)
+            n_pipe = len(rec["synthesis_batches_pipelined"])
+            n_fall = len(rec["run_corpus_batched"])
+            if (n_pipe, n_fall) != (1, 0):
+                raise AssertionError(f"cli {what}: {n_pipe} pipelined runs "
+                                     f"(a retry beyond 1) and {n_fall} "
+                                     "fallback runs: a hidden fallback")
+
+        const_s = sum(len(x) for x in sigs[:CLI_CONST_UTTS]) / FS
+
+        def extract(out, what):
+            run(["extract", "--scp", scp_ex, "--wav-dir", d("wavs"),
+                 "--out-dir", d(out), "--batch-size", "32",
+                 "--crash-list", d(f"crash_{out}.scp")], what, rc_want=1)
+
+        def gen_const(out, what):
+            run(["generate", "--scp", scp_const, "--feats-dir", d("feats_c"),
+                 "--out-dir", d(out), "--const-rate", "--pf-type",
+                 "magphase"], what, audio=const_s)
+
+        K.reset_launch_counts()
+        K4.reset_launch_counts()
+        fallbacks0 = ab.capacity_fallbacks
+        extract("feats", "extract --batch-size 32 (one unreadable wav)")
+        with open(d("crash_feats.scp")) as f:
+            crashed = f.read().split()
+        if crashed != ["broken"]:
+            raise AssertionError(f"extract crash list {crashed}")
+        missing = [t for t in toks for ext in (".mag", ".real", ".imag",
+                                               ".lf0", ".shift")
+                   if not os.path.exists(d(f"feats/{t}{ext}"))]
+        if missing:
+            raise AssertionError(f"extract: {len(missing)} feature files "
+                                 f"missing, first {missing[0]}")
+        if ab.capacity_fallbacks != fallbacks0:
+            raise AssertionError("extract: a walk hit its capacity")
+
+        gen("wav16", what="generate --batch-size 16")
+        wav16 = _wav_tree(d("wav16"), toks)
+        for t in toks:
+            x = _pcm(d(f"wav16/{t}.wav"))
+            if not (len(x) > 2 * FS and np.abs(x).max() > 16000):
+                raise AssertionError(f"generate {t}: {len(x)} samples, peak "
+                                     f"{np.abs(x).max()}")
+
+        gen("wav5", "--batch-size", "5", what="generate --batch-size 5")
+        _same_wavs(wav16, _wav_tree(d("wav5"), toks),
+                   "generate --batch-size 5 against 16")
+        gen("wav8", "--transport", "int8", what="generate --transport int8")
+        rel, msd = 0.0, []
+        for t in toks:
+            a = _pcm(d(f"wav8/{t}.wav")).astype(np.float64)
+            b = _pcm(d(f"wav16/{t}.wav")).astype(np.float64)
+            if a.shape != b.shape:
+                raise AssertionError(f"int8 {t}: {a.shape} vs {b.shape}")
+            g = float(a @ b) / float(a @ a)
+            rel = max(rel, float(np.sqrt(np.mean((g * a - b) ** 2))
+                                 / np.sqrt(np.mean(b ** 2))))
+            msd.append(mel_spectral_distortion(a / 32768.0, b / 32768.0,
+                                               FS))
+        log(f"[cli] int8 against f16 transport, {CLI_UTTS} wavs: relative "
+            f"RMS after the gain at most {rel:.4g} (bound {TOL_INT8_REL}); "
+            f"MSD mean {np.mean(msd):.4f} dB, max {max(msd):.4f} dB")
+        if not 0.0 < rel < TOL_INT8_REL:
+            raise AssertionError("int8 transport out of the JAX package's "
+                                 "bound")
+
+        # extract --const-rate -> generate --const-rate (single synthesis)
+        run(["extract", "--scp", scp_const, "--wav-dir", d("wavs"),
+             "--out-dir", d("feats_c"), "--batch-size", "32",
+             "--const-rate"], "extract --const-rate", audio=const_s)
+        gen_const("wav_c", "generate --const-rate")
+        for t, x in zip(toks, sigs[:CLI_CONST_UTTS]):
+            n = len(read_binfile(d(f"feats_c/{t}.lf0"), 1))
+            if os.path.exists(d(f"feats_c/{t}.shift")) or \
+                    not abs(n - len(x) / 240.0) <= 2:
+                raise AssertionError(f"const-rate features of {t}: {n} "
+                                     "frames")
+            y, _ = read_wav(d(f"wav_c/{t}.wav"))
+            if not (abs(len(y) - len(x)) < 0.05 * FS and np.all(
+                    np.isfinite(y)) and np.std(y) > 1e-4):
+                raise AssertionError(f"const-rate wav of {t}: {len(y)} "
+                                     f"samples for {len(x)}")
+        # the fallback runner renders the pipelined path's bytes
+        def boom(*a, **kw):
+            raise RuntimeError("forced: exercise the fallback runner")
+
+        orig = batch.synthesis_batches_pipelined
+        batch.synthesis_batches_pipelined = boom
+        try:
+            run(["generate", "--scp", scp_all, "--feats-dir", d("feats"),
+                 "--out-dir", d("wav_fb"), "--batch-size", "16",
+                 "--pf-type", "magphase"], "generate, fallback runner")
+        finally:
+            batch.synthesis_batches_pipelined = orig
+        _same_wavs(wav16, _wav_tree(d("wav_fb"), toks),
+                   "generate through the fallback runner")
+
+        counts = {**K.launch_counts(), **K4.launch_counts()}
+        log(f"[cli] launches during the CLI path: {counts}")
+        for name in ("frames", "ola", "walk"):
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     "CLI path")
+
+        # the kernels on the CLI's own inputs: extract, generate and the
+        # const-rate generate again, every K1, K2 and K4 call recorded
+        # (the timed runs above are not, so their peak memory holds no
+        # recorded copies), each output byte-identical to its first run
+        with recording((K, "frames"), (K, "ola"), (K4, "walk")) as rec:
+            extract("feats_rec", "extract again, recorded")
+            gen("wav_rec", what="generate --batch-size 16 again, recorded")
+            gen_const("wav_c_rec", "generate --const-rate again, recorded")
+        for t in toks:
+            for ext in (".mag", ".real", ".imag", ".lf0", ".shift"):
+                with open(d(f"feats/{t}{ext}"), "rb") as f1, \
+                        open(d(f"feats_rec/{t}{ext}"), "rb") as f2:
+                    if f1.read() != f2.read():
+                        raise AssertionError(f"extract {t}{ext}: a second "
+                                             "run wrote other bytes")
+        _same_wavs(wav16, _wav_tree(d("wav_rec"), toks),
+                   "generate, second run")
+        _same_wavs(_wav_tree(d("wav_c"), toks[:CLI_CONST_UTTS]),
+                   _wav_tree(d("wav_c_rec"), toks[:CLI_CONST_UTTS]),
+                   "generate --const-rate, second run")
+        kchecks = check_path_kernels(rec, "cli")
+        # the walks of the first chunk (scp order: the unreadable wav
+        # stops the length sort) cover the card-vs-CPU utterances
+        walks_g = _walk_records(rec, "walk")[:CLI_CPU_UTTS]
+        del rec
+        torch.cuda.empty_cache()
+        log("[cli] kernels against their plain versions on the CLI's own "
+            "inputs and results: " + "; ".join(
+                f"{n} {r['calls']} calls at {r['shapes']} max |kernel - "
+                f"plain| {r['max_abs_err']:.3g}" for n, r in kchecks.items()))
+
+        # convert-labels on synthetic HTS labels over each .shift track
+        os.makedirs(d("labs"))
+        for t in toks[:CLI_CONST_UTTS]:
+            ep_ms = np.cumsum(read_binfile(d(f"feats/{t}.shift"), 1)) \
+                * 1000.0 / FS
+            cuts = np.linspace(0, int(np.ceil((ep_ms[-1] + 1.0) * 1e4)),
+                               31).astype(np.int64)
+            with open(d(f"labs/{t}.lab"), "w") as f:
+                for i in range(30):
+                    f.write(f"{cuts[i]} {cuts[i + 1]} ph{i // 5}[{i % 5}]\n")
+        run(["convert-labels", "--scp", scp_const, "--shift-dir",
+             d("feats"), "--lab-dir", d("labs"), "--out-dir",
+             d("labs_var")], "convert-labels", audio=const_s)
+        for t in toks[:CLI_CONST_UTTS]:
+            rows = [ln.split() for ln in open(d(f"labs_var/{t}.lab"))]
+            st = np.asarray([int(r[0]) for r in rows])
+            en = np.asarray([int(r[1]) for r in rows])
+            n = len(read_binfile(d(f"feats/{t}.shift"), 1))
+            if not (len(rows) == 30 and st[0] == 0
+                    and np.array_equal(st[1:], en[:-1])
+                    and en[-1] == n * 50000):
+                raise AssertionError(f"convert-labels {t}: not {n} frames "
+                                     "of 5 ms in 30 contiguous states")
+
+        # eval: the round trip, and a corpus against itself
+        for ref, cand, what in (("wavs", "wav16", "round trip"),
+                                ("wav16", "wav16", "identity")):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                run(["eval", "--scp", scp_all, "--ref-dir", d(ref),
+                     "--cand-dir", d(cand)], f"eval {what}")
+            out = buf.getvalue().splitlines()
+            print("\n".join(ln for ln in out if ln.startswith("[cli]")),
+                  flush=True)
+            res = json.loads([ln for ln in out if ln.startswith("{")][-1])
+            if what == "identity":
+                if res["mean_db"] != 0.0:
+                    raise AssertionError(f"eval identity {res['mean_db']}")
+                continue
+            per = np.asarray(list(res["per_utt"].values()))
+            if not (len(per) == CLI_UTTS and np.all(np.isfinite(per))
+                    and np.all(per > 0)):
+                raise AssertionError(f"eval round trip: {res}")
+            log(f"[cli] eval, input wavs against the round trip: MSD mean "
+                f"{res['mean_db']} dB, per utterance {per.min():.3f}-"
+                f"{per.max():.3f} dB")
+
+        # the card against the CPU
+        walk_c = {}
+        with recording((K4, "walk")) as rec_c:
+            cpu_s = sum(len(x) for x in sigs[:CLI_CPU_UTTS]) / FS
+            run(["extract", "--scp", scp_cpu, "--wav-dir", d("wavs"),
+                 "--out-dir", d("feats_cpu"), "--batch-size", "32",
+                 "--device", "cpu"], "extract --device cpu", audio=cpu_s)
+        gen("wav_cpu", "--device", "cpu", what="generate --device cpu",
+            scp_path=scp_cpu, audio=cpu_s)
+        gen("wav8_cpu", "--device", "cpu", "--transport", "int8",
+            what="generate --device cpu --transport int8", scp_path=scp_cpu,
+            audio=cpu_s)
+        for card, host in (("wav16", "wav_cpu"), ("wav8", "wav8_cpu")):
+            steps = 0
+            for t in toks[:CLI_CPU_UTTS]:
+                x = _pcm(d(f"{host}/{t}.wav"))
+                y = _pcm(d(f"{card}/{t}.wav"))
+                if x.shape != y.shape or np.abs(x - y).max() > 1:
+                    raise AssertionError(f"generate {t} ({card}), card vs "
+                                         "CPU: more than one PCM16 step")
+                steps += int(np.sum(x != y))
+            log(f"[cli] generate ({card}), card vs CPU, {CLI_CPU_UTTS} wavs: "
+                f"PCM16 samples within one step (bound 1), {steps} samples "
+                "one step apart")
+        walks_c = _walk_records(rec_c, "walk")[:CLI_CPU_UTTS]
+        moved = marks = move = rows = 0
+        s_err = l_err = 0.0
+        for i, t in enumerate(toks[:CLI_CPU_UTTS]):
+            g, c = ([read_binfile(d(f"{k}/{t}{ext}"), dim) for ext, dim in
+                     ((".mag", MAG_DIM), (".real", PHASE_DIM),
+                      (".imag", PHASE_DIM), (".lf0", 1), (".shift", 1))]
+                    for k in ("feats", "feats_cpu"))
+            mv, mk, mx, se, le, nr, ties = _facade_card_vs_cpu(
+                g, c, f"extract {t}", False, (walks_g[i], walks_c[i]),
+                f16=True)
+            moved, marks, move, rows = (moved + mv, marks + mk,
+                                        max(move, mx), rows + nr)
+            s_err, l_err = max(s_err, se), max(l_err, le)
+            for r in ties:
+                log(f"[cli] extract {t}, card vs CPU: mark {r['mark']} moved "
+                    f"{r['move']:+d} samples (one period {r['period']:.1f});"
+                    f" troughs swap order: {r['tie']}")
+        log(f"[cli] extract, card vs CPU, {CLI_CPU_UTTS} utts: {moved} of "
+            f"{marks} marks moved (largest {move} samples; bound "
+            f"{MAX_MARK_DIFF_SHARE} of them, each within one period); on "
+            f"{rows} agreeing rows the float16 mel streams differ by at most "
+            f"{s_err:.3g} beyond one float16 step (bound "
+            f"{TOL_ANALYSIS_STREAMS}), lf0 {l_err:.3g} relative (bound "
+            f"{TOL_ANALYSIS_LF0_REL})")
+
+        # the serve daemon: two generate --server requests, each the
+        # in-process batch-16 run's bytes
+        sock = d("mp.sock")
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "magphase_tpu_torch.cli", "serve",
+             "--socket", sock], cwd=os.path.dirname(os.path.abspath(
+                 __file__)), stdout=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            ready, _, _ = select.select([srv.stdout], [], [], 300.0)
+            line = srv.stdout.readline() if ready else ""
+            if "serving on" not in line:
+                raise AssertionError(f"serve did not start: {line!r}")
+            log(f"[cli] serve: ready in {time.perf_counter() - t0:.3f} s")
+            walls = []
+            for k in (1, 2):
+                t0 = time.perf_counter()
+                rc = cli.main(["generate", "--scp", scp_all, "--feats-dir",
+                               d("feats"), "--out-dir", d(f"wav_srv{k}"),
+                               "--batch-size", "16", "--pf-type", "magphase",
+                               "--server", sock])
+                walls.append(time.perf_counter() - t0)
+                if rc != 0:
+                    raise AssertionError(f"serve request {k}: rc {rc}")
+                _same_wavs(wav16, _wav_tree(d(f"wav_srv{k}"), toks),
+                           f"serve request {k}")
+            log(f"[cli] serve, two generate --server requests of {CLI_UTTS} "
+                f"utts: {walls[0]:.3f} s and {walls[1]:.3f} s wall "
+                f"({audio_s / walls[0]:.1f} and {audio_s / walls[1]:.1f} "
+                "audio-s/s), both byte-identical to the in-process run")
+            if cli.main(["serve", "--socket", sock, "--shutdown"]) != 0:
+                raise AssertionError("serve --shutdown failed")
+            srv.wait(timeout=60)
+        finally:
+            if srv.poll() is None:
+                srv.kill()
+                srv.wait(timeout=60)
+            srv.stdout.close()
+        if srv.returncode != 0:
+            raise AssertionError(f"serve exited with {srv.returncode}")
+        log(f"[cli] byte-identical wavs: pipelined = fallback runner = batch "
+            f"16 = batch 5 = serve request 1 = serve request 2, {CLI_UTTS} "
+            "wavs each; no token through the fallback runner or a retry "
+            f"outside the forced run; native reader in use: "
+            f"{native.available()}")
     return counts, kchecks
 
 
@@ -1895,6 +2325,9 @@ def main() -> None:
     counts_f, facade_checks = run_facade_path(dev, args.seed)
     for name, r in facade_checks.items():
         results[name]["facade"] = r
+    counts_c, cli_checks = run_cli_path(dev, args.seed)
+    for name, r in cli_checks.items():
+        results[name]["cli"] = r
 
     if args.profile:
         profile_request(feats, keys_all, dev)
@@ -1904,8 +2337,9 @@ def main() -> None:
     launches = {**counts, "walk": counts_a["walk"],
                 "rfft_fused": counts_k5["rfft_fused"],
                 "irfft_fused": counts_k5["irfft_fused"]}
-    for name, c in counts_f.items():
-        launches[name] += c
+    for counts_p in (counts_f, counts_c):
+        for name, c in counts_p.items():
+            launches[name] += c
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -1914,7 +2348,7 @@ def main() -> None:
                     **{k: r[k] for k in ("bytes_bound_ms",
                                          "chain_ns_per_step",
                                          "padded_bound_ms", "copy_synthesis",
-                                         "facade")
+                                         "facade", "cli")
                        if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))

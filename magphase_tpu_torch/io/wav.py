@@ -1,5 +1,6 @@
 """WAV file I/O without external dependencies (numpy-only copy of
-magphase_tpu/io/wav.py: the names its io package exports).
+magphase_tpu/io/wav.py: the names its io package exports, and
+write_wav_pcm16).
 
 The reference uses python-soundfile (libsndfile) via ``la.read_audio_file`` /
 ``la.write_audio_file`` (the reference's src/libaudio.py:343-365).  soundfile
@@ -146,6 +147,21 @@ def write_wav(path: str, sig: np.ndarray, fs: int, subtype: str = "PCM_16") -> N
     hdr = b"RIFF" + struct.pack("<I", 36 + len(raw)) + b"WAVE"
     hdr += b"fmt " + struct.pack("<IHHIIHH", 16, afmt, n_ch, fs, byte_rate,
                                  block_align, bits)
+    hdr += b"data" + struct.pack("<I", len(raw))
+    with open(path, "wb") as f:
+        f.write(hdr + raw)
+
+
+def write_wav_pcm16(path: str, pcm: np.ndarray, fs: int) -> None:
+    """Write already-quantised int16 mono samples as a PCM16 WAV.
+
+    Counterpart of the device-side peak-norm + quantise
+    (parallel.batch._pcm16_kernel): the host only writes raw frames."""
+    raw = np.ascontiguousarray(pcm, "<i2").tobytes()
+    block_align = 2
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(raw)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, _WAVE_FORMAT_PCM, 1, fs,
+                                 fs * block_align, block_align, 16)
     hdr += b"data" + struct.pack("<I", len(raw))
     with open(path, "wb") as f:
         f.write(hdr + raw)

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -23,6 +24,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the pipelined entries' stage threads may reach a first launch together:
+# one builds, the others wait and find the library built (the temporary
+# files are named by process only)
+_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -48,6 +53,11 @@ def build(*sources: Path) -> dict:
     flags exists; the nvcc processes run concurrently.  Returns
     {source stem: {path, seconds, log, cached}}; ``log`` holds the
     compiler's output (the ptxas register/spill report)."""
+    with _LOCK:
+        return _build_locked(sources)
+
+
+def _build_locked(sources) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, running = {}, []
     for src in sources:

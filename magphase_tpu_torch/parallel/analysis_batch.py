@@ -14,9 +14,11 @@ lossless entry's JAX program analyses at the walk capacity and slices the
 frames to the realised bucket afterwards; the port analyses at the
 realised bucket directly, which gives the same frames (a frame reads
 only its own and its neighbours' marks, and marks past the mark count are
-zeros either way).  Groups run one after another:
-the JAX package's upload/compute/download threads (run_staged) are a host-
-link workaround and are not ported.
+zeros either way).  The compressed entry's groups run through
+analysis_compressed_batch_async: prepare -> upload -> both phases ->
+download, a thread each (utils/pipeline.py:run_staged) and, on a card, a
+CUDA stream per device stage (utils/transfer.py); the lossless entry's
+groups run one after another.
 """
 from __future__ import annotations
 
@@ -30,8 +32,10 @@ from ..core.filters import medfilt3
 from ..core.spectral import f0_to_lf0
 from ..epochs import tracker
 from ..epochs.placement_device import placement_m_max, track_and_place_batch
+from ..utils import transfer
 from ..utils.padding import (FRM_STEP, MAX_FRAME_ELEMS, bucket,
                              bucket_frames, bucket_signal, pad_to)
+from ..utils.pipeline import run_staged
 from ..vocoder import framerate
 from ..vocoder.compressed import (
     _format_kernel, get_num_full_mel_coeffs_from_num_phase_coeffs)
@@ -40,7 +44,7 @@ from .batch import budget_batch_cap, capped_batch_step
 
 logger = logging.getLogger(__name__)
 
-FEAT_DTYPES = (np.float16, np.float32)
+FEAT_DTYPES = (np.float16, np.float32, np.uint8)
 # encodings of analysis_lossless_batch's tracked features: exact float32;
 # the phasor as an int16 angle; that plus a per-(utterance, bin) affine
 # uint16 magnitude
@@ -205,11 +209,9 @@ def _analyze_compress_impl(sigs, marks, flags, n_marks, n_sigs, *, fs: int,
 
 
 def _per_utterance(mml, mrm, mim, lf0, shift, n_valid, n_marks, n_real):
-    """Host copies of phase 2's outputs, one (mag_mel_log, real_mel,
+    """Phase 2's outputs (host arrays), one (mag_mel_log, real_mel,
     imag_mel, lf0, shift) tuple per real utterance: n_valid[b] rows of the
     streams, n_marks[b] shifts."""
-    mml, mrm, mim, lf0, shift = (x.cpu().numpy()
-                                 for x in (mml, mrm, mim, lf0, shift))
     out = []
     for b in range(n_real):
         n = int(n_valid[b])
@@ -221,52 +223,34 @@ def _per_utterance(mml, mrm, mim, lf0, shift, n_valid, n_marks, n_real):
     return out
 
 
+def _encode_u8(mml, mrm, mim, n_valid):
+    """The uint8 transfer encoding of the mel streams, on their device: the
+    (B, F, D) concatenation as round((x - lo) / scale) in [0, 255], with lo
+    and scale = (hi - lo) / 255 per (utterance, coefficient) over the
+    n_valid rows (scale 1 where hi == lo), divided tensor by tensor as the
+    JAX package divides (P2).  Returns (q uint8, scale, lo) float32."""
+    feats = torch.cat([mml, mrm, mim], dim=-1)
+    F = feats.shape[1]
+    valid = (torch.arange(F, device=feats.device)[None, :, None]
+             < n_valid[:, None, None])
+    big = 3.0e38
+    lo = torch.amin(torch.where(valid, feats, big), dim=1)
+    hi = torch.amax(torch.where(valid, feats, -big), dim=1)
+    lo = torch.minimum(lo, hi)
+    scale = torch.where(hi > lo, (hi - lo) / torch.full_like(hi, 255.0), 1.0)
+    q = torch.clamp(torch.round((feats - lo[:, None, :]) / scale[:, None, :]),
+                    0, 255).to(torch.uint8)
+    return q, scale, lo
+
+
 def _check_options(mesh, feat_dtype) -> None:
     if mesh is not None:
         raise ValueError("mesh must be None: multi-device analysis is not "
                          "supported")
     if not any(np.dtype(feat_dtype) == np.dtype(d) for d in FEAT_DTYPES):
-        raise ValueError(f"feat_dtype={feat_dtype!r}: only np.float16 and "
-                         "np.float32 are supported")
+        raise ValueError(f"feat_dtype={feat_dtype!r}: np.float16, np.float32 "
+                         "or np.uint8")
     tracker.nccf_whiten_mode()
-
-
-def _analyze_tracked_group(group, fs, *, fft_len, mag_dim, phase_dim,
-                           mag_dim_ph, alpha, alpha_phase, b_const_rate,
-                           feats_f16, device):
-    """Both phases for one budget group of the tracked branch."""
-    global capacity_fallbacks
-    signals_g, host, S, Tmax, m_max, n_real = _host_signal_batch(
-        group, fs, fft_len)
-    sigs, n_sigs, n_frames = (torch.from_numpy(a).to(device) for a in host)
-    marks, flags, n_marks = _track_place_impl(
-        sigs, n_sigs, n_frames, fs=fs, n_frames_max=Tmax, m_max=m_max)
-    nm = n_marks.cpu().numpy()
-    Fa = min(m_max, bucket_frames(int(nm.max())))
-    *outs, n_valid = _analyze_compress_impl(
-        sigs, marks, flags, n_marks, n_sigs, fs=fs, fft_len=fft_len, F=Fa,
-        mag_dim=mag_dim, phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
-        alpha=alpha, alpha_phase=alpha_phase,
-        fc_max=_fc_max(S, fs, b_const_rate), feats_f16=feats_f16)
-    out = _per_utterance(*outs, n_valid.cpu().numpy(), nm, n_real)
-
-    # a walk that hit its capacity (pathological mark density) is redone
-    # with the host walk and the given-epochs branch, as the JAX package
-    # does
-    trunc = [b for b in range(n_real) if int(nm[b]) >= m_max]
-    if trunc:
-        logger.warning("epoch-walk capacity hit for %d utterance(s); "
-                       "host-walk fallback", len(trunc))
-        capacity_fallbacks += len(trunc)
-        eps = [tracker.extract_epochs(signals_g[b], fs, device=device)
-               for b in trunc]
-        fixed = analysis_compressed_batch(
-            [signals_g[b] for b in trunc], fs, mag_dim=mag_dim,
-            phase_dim=phase_dim, fft_len=fft_len, alpha_phase=alpha_phase,
-            b_const_rate=b_const_rate, epochs=eps, device=device)
-        for j, b in enumerate(trunc):
-            out[b] = fixed[j]
-    return out
 
 
 def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
@@ -286,15 +270,18 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
 
     ``epochs=None``: the built-in tracker places the epochs (phase 1),
     then analysis + compression run at the realised frame bucket (phase
-    2).  ``feat_dtype``: np.float16 (the JAX package's default: the mel
-    streams rounded through float16, lf0 and shift float32) or np.float32.
-    ``epochs``: a list of (pm_sec, voi) per signal instead of the tracker;
-    as in the JAX package, that branch returns float32 streams whatever
-    ``feat_dtype`` says.  ``device``: where the work runs.
+    2), through analysis_compressed_batch_async.  ``feat_dtype``:
+    np.float16 (the JAX package's default: the mel streams rounded through
+    float16, lf0 and shift float32), np.float32, or np.uint8 (the mel
+    streams through per-(utterance, coefficient) affine uint8 codes,
+    variable rate only; constant rate falls back to float16, as in the JAX
+    package).  ``epochs``: a list of (pm_sec, voi) per signal instead of
+    the tracker; as in the JAX package, that branch returns float32
+    streams whatever ``feat_dtype`` says.  ``device``: where the work
+    runs.
 
-    Not ported, each raising ValueError: a ``mesh``,
-    ``feat_dtype=np.uint8`` and any MAGPHASE_TRACKER_WHITEN other than
-    'none'."""
+    Not ported, each raising ValueError: a ``mesh`` and any
+    MAGPHASE_TRACKER_WHITEN other than 'none'."""
     _check_options(mesh, feat_dtype)
     device = torch.device(device)
     alpha = define_alpha(fs)
@@ -309,12 +296,11 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
               b_const_rate=b_const_rate)
 
     if epochs is None:
-        feats_f16 = np.dtype(feat_dtype) == np.float16
-        out = []
-        for group in _split_for_budget(signals, fs, fft_len):
-            out.extend(_analyze_tracked_group(
-                group, fs, feats_f16=feats_f16, device=device, **kw))
-        return out
+        return analysis_compressed_batch_async(
+            signals, fs, mag_dim=mag_dim, phase_dim=phase_dim,
+            fft_len=fft_len, alpha_phase=alpha_phase,
+            b_const_rate=b_const_rate, feat_dtype=feat_dtype,
+            device=device)()
 
     max_b = _epochs_budget(epochs, fft_len)
     if len(signals) > max_b:
@@ -338,8 +324,124 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
     mml, mrm, mim, lf0 = _compress_streams(
         mag, real, imag, f0, **{k: v for k, v in kw.items()
                                 if k not in ("fft_len", "b_const_rate")})
-    return _per_utterance(mml, mrm, mim, lf0, shift, n_valid.cpu().numpy(),
-                          nfrms, len(nfrms))
+    host = transfer.to_host((mml, mrm, mim, lf0, shift, n_valid), None, None)
+    return _per_utterance(*host, nfrms, len(nfrms))
+
+
+def analysis_compressed_batch_async(signals: list, fs: int,
+                                    mag_dim: int = 60, phase_dim: int = 45,
+                                    fft_len: int | None = None,
+                                    alpha_phase: float | None = None,
+                                    b_const_rate: bool = False,
+                                    mesh=None, feat_dtype=np.float16, *,
+                                    device="cuda"):
+    """Threaded tracking -> analysis + compression of one utterance batch;
+    work starts at once, returns ``finalize() -> feats`` (the list
+    analysis_compressed_batch returns).
+
+    Each budget group runs prepare (host rows) -> upload -> compute (phase
+    1, the (B,) mark counts to the host, phase 2 at the realised frame
+    bucket, and the uint8 encode) -> download, a thread each
+    (utils/pipeline.py:run_staged), and on a card a CUDA stream per device
+    stage (utils/transfer.py).  The phases are analysis_compressed_batch's,
+    so the features are the same.  ``feat_dtype``: np.float16, np.float32
+    or np.uint8 (variable rate; constant rate falls back to float16), as
+    in analysis_compressed_batch.  A stage that raises tears the pipeline
+    down and re-raises in ``finalize``."""
+    _check_options(mesh, feat_dtype)
+    device = torch.device(device)
+    alpha = define_alpha(fs)
+    if fft_len is None:
+        fft_len = define_fft_len(fs)
+    if alpha_phase is None:
+        alpha_phase = alpha
+    mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
+        define_crossfade_params(fs)[0], phase_dim, alpha_phase, fs)
+    ckw = dict(mag_dim=mag_dim, phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
+               alpha=alpha, alpha_phase=alpha_phase)
+    if np.dtype(feat_dtype) == np.uint8:
+        enc = "f16" if b_const_rate else "u8"
+    else:
+        enc = "f16" if np.dtype(feat_dtype) == np.float16 else "f32"
+    legs = transfer.Legs(device)
+
+    def prep(group):
+        signals_g, host, S, Tmax, m_max, n_real = _host_signal_batch(
+            group, fs, fft_len)
+        return dict(signals=signals_g, host=host, S=S, Tmax=Tmax,
+                    m_max=m_max, n_real=n_real)
+
+    def upload(p):
+        p["dev"], p["event"] = transfer.upload(p.pop("host"), device,
+                                               legs.upload)
+        return p
+
+    def compute(p):
+        with transfer.on(legs.compute):
+            sigs, n_sigs, n_frames = p.pop("dev")
+            transfer.adopt((sigs, n_sigs, n_frames), legs.compute,
+                           p["event"])
+            marks, flags, n_marks = _track_place_impl(
+                sigs, n_sigs, n_frames, fs=fs, n_frames_max=p["Tmax"],
+                m_max=p["m_max"])
+            p["nm"] = n_marks.cpu().numpy()
+            Fa = min(p["m_max"], bucket_frames(int(p["nm"].max())))
+            *outs, n_valid = _analyze_compress_impl(
+                sigs, marks, flags, n_marks, n_sigs, fs=fs, fft_len=fft_len,
+                F=Fa, fc_max=_fc_max(p["S"], fs, b_const_rate),
+                feats_f16=enc == "f16", **ckw)
+            if enc == "u8":
+                outs = list(_encode_u8(*outs[:3], n_valid)) + outs[3:]
+            p["out"] = tuple(outs) + (n_valid,)
+            p["event"] = transfer.record(legs.compute)
+        return p
+
+    def download(p):
+        global capacity_fallbacks
+        host = transfer.to_host(p.pop("out"), legs.download, p.pop("event"))
+        nm, n_real = p["nm"], p["n_real"]
+        if enc == "u8":
+            q, scale, lo, lf0, shift, n_valid = host
+            out = []
+            for b in range(n_real):
+                n = int(n_valid[b])
+                f = q[b, :n].astype(np.float64) * scale[b] + lo[b]
+                out.append((f[:, :mag_dim], f[:, mag_dim:mag_dim + phase_dim],
+                            f[:, mag_dim + phase_dim:],
+                            lf0[b, :n].astype(np.float64),
+                            shift[b, :int(nm[b])].astype(np.int64)))
+        else:
+            out = _per_utterance(*host, nm, n_real)
+
+        # a walk that hit its capacity (pathological mark density) is
+        # redone with the host walk and the given-epochs branch, as the
+        # JAX package does
+        trunc = [b for b in range(n_real) if int(nm[b]) >= p["m_max"]]
+        if trunc:
+            logger.warning("epoch-walk capacity hit for %d utterance(s); "
+                           "host-walk fallback", len(trunc))
+            capacity_fallbacks += len(trunc)
+            eps = [tracker.extract_epochs(p["signals"][b], fs, device=device)
+                   for b in trunc]
+            fixed = analysis_compressed_batch(
+                [p["signals"][b] for b in trunc], fs, mag_dim=mag_dim,
+                phase_dim=phase_dim, fft_len=fft_len,
+                alpha_phase=alpha_phase, b_const_rate=b_const_rate,
+                epochs=eps, device=device)
+            for j, b in enumerate(trunc):
+                out[b] = fixed[j]
+        return out
+
+    groups = _split_for_budget(signals, fs, fft_len)
+    pipe = run_staged(map(prep, groups), [upload, compute, download])
+
+    def finalize():
+        out = []
+        for chunk in pipe:
+            out.extend(chunk)
+        return out
+
+    return finalize
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,16 @@
-"""Batched compressed synthesis — the serving path (port of
-magphase_tpu/parallel/batch.py: synthesis_from_compressed_batch and the
-host/device halves behind it).
+"""Batched compressed synthesis — the serving path and the pipelined
+corpus entry (port of magphase_tpu/parallel/batch.py:
+synthesis_from_compressed_batch, synthesis_batches_pipelined,
+quantise_feats and the host/device halves behind them).
 
 Utterances are padded into dense (B, frames, ...) tensors exactly as the
 JAX package pads them — same batch bucket, frame bucket, output-length
-bucket and float16 feature rounding — so both packages compute from the
-same inputs: host packing and framing geometry in numpy, then post-filter
--> mel-unwarp -> synthesis core -> spectral high-pass on the given device.
+bucket and float16 feature rounding (or the same uint8 codes of the int8
+transport) — so both packages compute from the same inputs: host packing
+and framing geometry in numpy, then post-filter -> mel-unwarp ->
+synthesis core -> spectral high-pass on the given device.  A group runs
+as three halves: prepare (numpy), upload, execute; the blocking entry runs
+them in turn, the pipelined entry on a thread and a stream each.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import define_alpha, define_crossfade_params, define_fft_len
+from ..utils import transfer
 from ..utils.keys import prng_key, split
 from ..utils.padding import (FRM_STEP, MAX_FRAME_ELEMS, bucket,
                              bucket_signal)
@@ -27,6 +32,8 @@ from ..vocoder.framerate import truncate_shifts
 from ..vocoder.postfilter import post_filter, post_filter_merlin
 
 PF_TYPES = ("no", "magphase", "merlin")
+# host-link encodings of the packed feature tensor
+TRANSPORTS = ("f16", "int8")
 
 
 def _check_hpf_mode() -> None:
@@ -57,16 +64,21 @@ def budget_batch_cap(max_b: int) -> int:
     return max(1, max_b)
 
 
-def _fused_batch_impl(feats, voi, pm, shifts, nfrms, ns_len, keys, *,
+def _fused_batch_impl(feats, voi, pm, shifts, nfrms, ns_len, keys,
+                      q_scale=None, q_zp=None, *,
                       fs, fft_len, alpha, alpha_phase, mag_dim, phase_dim,
                       mag_dim_ph, b_voi_ap_win, per_phase_type, out_len_max,
                       b_out_hpf, pf_type, tables):
     """[post-filter] -> mel-unwarp -> synthesis core [+ spectral 40 Hz
     high-pass] for the whole batch (magphase.py:825-997 + 3259-3268).
-    feats (B, F, mag+2*phase) float16; keys (B, 2) uint32 values."""
+    feats (B, F, mag+2*phase) float16, or uint8 codes with their (B, D)
+    float32 ``q_scale`` and ``q_zp`` (the int8 transport, quantise_feats);
+    keys (B, 2) uint32 values.  All compute is float32."""
     B, F, _D = feats.shape
     h = fft_len // 2 + 1
     feats = feats.to(torch.float32)
+    if q_scale is not None:
+        feats = feats * q_scale[:, None, :] + q_zp[:, None, :]
     mag_mel = feats[..., :mag_dim].reshape(B * F, mag_dim)
     real_mel = feats[..., mag_dim:mag_dim + phase_dim].reshape(B * F,
                                                               phase_dim)
@@ -87,6 +99,32 @@ def _fused_batch_impl(feats, voi, pm, shifts, nfrms, ns_len, keys, *,
         fs=fs, fft_len=fft_len, alpha=alpha, b_voi_ap_win=b_voi_ap_win,
         per_phase_type=per_phase_type, out_len_max=out_len_max,
         out_hpf="spectral" if b_out_hpf else None, tables=tables)
+
+
+def quantise_feats(feats16: np.ndarray, nfrms: np.ndarray):
+    """Per-(utterance, coefficient) affine uint8 quantisation of the
+    packed (B, F, D) float16 feature tensor — the int8 transport encoding
+    (half the bytes of float16), in numpy as in the JAX package, so both
+    packages dequantise the same codes.
+
+    The affine range is computed over each utterance's VALID rows only
+    (padding rows dequantise to arbitrary in-range values; every consumer
+    masks frames >= nfrms).  Max dequantisation error is scale/2 =
+    range/510 per coefficient.  Returns (q (B, F, D) uint8, scale (B, D)
+    f32, zp (B, D) f32).
+    """
+    B, F, D = feats16.shape
+    x = feats16.astype(np.float32)
+    valid = np.arange(F)[None, :, None] < nfrms[:, None, None]
+    big = np.float32(np.finfo(np.float32).max)
+    lo = np.min(np.where(valid, x, big), axis=1)
+    hi = np.max(np.where(valid, x, -big), axis=1)
+    lo = np.minimum(lo, hi)                      # empty guard
+    scale = (hi - lo) / 255.0
+    scale = np.where(scale > 0, scale, 1.0).astype(np.float32)
+    q = np.clip(np.rint((x - lo[:, None, :]) / scale[:, None, :]),
+                0, 255).astype(np.uint8)
+    return q, scale, lo.astype(np.float32)
 
 
 def _pcm16_kernel(bufs: torch.Tensor, lens: torch.Tensor,
@@ -126,10 +164,12 @@ def _synthesis_geometry(utts, fs: int, fft_len: int, det_fft_syn: bool):
 
 
 def _prepare_synthesis_group(utts, *, n_real, keys, max_b, fs, mag_dim,
-                             phase_dim):
+                             phase_dim, transport="f16"):
     """Host half of one synthesis group: batch-axis bucketing (dummy
     2-frame unvoiced utterances, dropped on return), float16 feature
-    packing and vectorised float64 framing geometry.  Pure numpy."""
+    packing (uint8 codes with their scale and zero point for the int8
+    ``transport``) and vectorised float64 framing geometry.  Pure numpy:
+    safe on a feeder thread."""
     B = bucket(n_real, capped_batch_step(max_b))
     if B > n_real:
         dummy = (np.full((2, mag_dim), -3.0, np.float32),
@@ -165,13 +205,84 @@ def _prepare_synthesis_group(utts, *, n_real, keys, max_b, fs, mag_dim,
     ns_lens = last + (last - prev)
     out_lens = (ns_lens + 1).tolist()
 
+    q_scale = q_zp = None
+    if transport == "int8":
+        feats, q_scale, q_zp = quantise_feats(feats, nfrms)
+    elif transport != "f16":
+        raise ValueError(f"unknown transport {transport!r}")
     keys_b = np.zeros((B, 2), np.uint32)
     keys_b[:n_real] = keys[:n_real]         # dummy rows: outputs dropped
     return dict(feats=feats, voi=voi_b.astype(np.float32),
                 pm=pm_b.astype(np.int32), shifts=shifts_b.astype(np.int32),
                 nfrms=nfrms.astype(np.int32), ns_lens=ns_lens.astype(np.int32),
-                keys=keys_b, out_lens=out_lens, n_real=n_real,
-                O=bucket_signal(int(max(out_lens))))
+                keys=keys_b, q_scale=q_scale, q_zp=q_zp, out_lens=out_lens,
+                n_real=n_real, O=bucket_signal(int(max(out_lens))))
+
+
+def _upload_synthesis_group(host: dict, device, stream=None) -> dict:
+    """Device half 1: the group's operands on ``device`` (through pinned
+    buffers on ``stream`` on a card, utils/transfer.py); returns them with
+    the event after their copies."""
+    names = ["feats", "voi", "pm", "shifts", "nfrms", "ns_lens"]
+    arrays = [host[n] for n in names]
+    arrays.append(host["keys"].astype(np.int64))
+    arrays.append(np.asarray(host["out_lens"], np.int64))
+    if host["q_scale"] is not None:
+        arrays += [host["q_scale"], host["q_zp"]]
+    t, event = transfer.upload(arrays, device, stream)
+    extra = tuple(t[8:]) if host["q_scale"] is not None else (None, None)
+    return dict(args=tuple(t[:7]), lens=t[7], extra=extra, event=event,
+                host=host)
+
+
+def _group_tables(cfg: dict, device) -> SynthesisTables:
+    """The constant tables of a synthesis configuration on ``device``."""
+    return SynthesisTables(
+        fs=cfg["fs"], fft_len=cfg["fft_len"], alpha=cfg["alpha"],
+        alpha_phase=cfg["alpha_phase"], mag_dim=cfg["mag_dim"],
+        mag_dim_ph=cfg["mag_dim_ph"], pf_type=cfg["pf_type"],
+        out_hpf="spectral" if cfg["b_out_hpf"] else None).to(device)
+
+
+def _execute_synthesis_group(dev: dict, cfg: dict, tables, *,
+                             pcm16: bool) -> torch.Tensor:
+    """Device half 2: the fused synthesis of the group (+ the device PCM16
+    encode), on the calling thread's current stream.  Returns the (B, O)
+    buffers."""
+    bufs = _fused_batch_impl(*dev["args"], *dev["extra"],
+                             out_len_max=dev["host"]["O"], tables=tables,
+                             **cfg)
+    if pcm16:
+        bufs = _pcm16_kernel(bufs, dev["lens"])
+    return bufs
+
+
+def _check_synthesis_options(transport, mesh, pf_type,
+                             per_phase_type) -> None:
+    if transport not in TRANSPORTS:
+        raise ValueError(f"transport={transport!r}: expected one of "
+                         f"{TRANSPORTS}")
+    if mesh is not None:
+        raise ValueError("mesh must be None: multi-device synthesis is not "
+                         "supported")
+    if pf_type not in PF_TYPES:
+        raise ValueError(f"pf_type={pf_type!r}: expected one of {PF_TYPES}")
+    if per_phase_type not in PER_PHASE_TYPES:
+        raise ValueError(per_phase_type)
+    _check_hpf_mode()
+
+
+def _synthesis_config(utts, fs, fft_syn, alpha, alpha_phase, b_voi_ap_win,
+                      per_phase_type, b_out_hpf, pf_type) -> dict:
+    """The keyword arguments of _fused_batch_impl that a call fixes."""
+    mag_dim = np.atleast_2d(utts[0][0]).shape[1]
+    phase_dim = np.atleast_2d(utts[0][1]).shape[1]
+    mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
+        define_crossfade_params(fs)[0], phase_dim, alpha_phase, fs)
+    return dict(fs=fs, fft_len=fft_syn, alpha=alpha, alpha_phase=alpha_phase,
+                mag_dim=mag_dim, phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
+                b_voi_ap_win=b_voi_ap_win, per_phase_type=per_phase_type,
+                b_out_hpf=b_out_hpf, pf_type=pf_type)
 
 
 def synthesis_from_compressed_batch(utts, fs: int,
@@ -206,26 +317,19 @@ def synthesis_from_compressed_batch(utts, fs: int,
     and the per-utterance lengths (a list of row tensors when the batch
     was split under the frame-element budget).  ``pcm16`` (with
     ``block_result=False``) peak-normalises and quantises the buffers to
-    int16 on the device.  ``det_fft_syn`` fixes the synthesis FFT at the
-    50 Hz worst case, independent of batch content.
+    int16 on the device.  ``transport``: the packed features' encoding,
+    "f16" or "int8" (per-(utterance, coefficient) affine uint8 codes,
+    quantise_feats); compute is float32 either way.  ``det_fft_syn``
+    fixes the synthesis FFT at the 50 Hz worst case, independent of batch
+    content.
 
-    Only the JAX package's default configuration surface is ported:
-    ``transport="f16"``, ``MAGPHASE_HPF_MODE=spectral`` and ``mesh=None``;
+    ``MAGPHASE_HPF_MODE=spectral`` (the default) and ``mesh=None`` only;
     anything else raises ValueError.
     """
     if pcm16 and block_result:
         raise ValueError("pcm16=True is a device transfer encoding; use "
                          "block_result=False")
-    if transport != "f16":
-        raise ValueError(f"transport={transport!r}: only 'f16' is supported")
-    if mesh is not None:
-        raise ValueError("mesh must be None: multi-device synthesis is not "
-                         "supported")
-    if pf_type not in PF_TYPES:
-        raise ValueError(f"pf_type={pf_type!r}: expected one of {PF_TYPES}")
-    if per_phase_type not in PER_PHASE_TYPES:
-        raise ValueError(per_phase_type)
-    _check_hpf_mode()
+    _check_synthesis_options(transport, mesh, pf_type, per_phase_type)
     if keys is None:
         keys = split(prng_key(0) if key is None else key, len(utts))
     keys = np.asarray(keys, np.uint32)
@@ -239,11 +343,6 @@ def synthesis_from_compressed_batch(utts, fs: int,
     if alpha_phase is None:
         alpha_phase = alpha
 
-    mag_dim = np.atleast_2d(utts[0][0]).shape[1]
-    phase_dim = np.atleast_2d(utts[0][1]).shape[1]
-    mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
-        define_crossfade_params(fs)[0], phase_dim, alpha_phase, fs)
-
     fft_syn, max_b = _synthesis_geometry(utts, fs, fft_len, det_fft_syn)
     if len(utts) > max_b:
         out, rows, lens_all = [], [], []
@@ -253,8 +352,8 @@ def synthesis_from_compressed_batch(utts, fs: int,
                 b_voi_ap_win=b_voi_ap_win, per_phase_type=per_phase_type,
                 alpha_phase=alpha_phase, b_out_hpf=b_out_hpf,
                 pf_type=pf_type, block_result=block_result, pcm16=pcm16,
-                keys=keys[i:i + max_b], det_fft_syn=det_fft_syn,
-                device=device)
+                transport=transport, keys=keys[i:i + max_b],
+                det_fft_syn=det_fft_syn, device=device)
             if block_result:
                 out.extend(r)
             else:
@@ -263,33 +362,114 @@ def synthesis_from_compressed_batch(utts, fs: int,
                 lens_all.extend(lens_g)
         return out if block_result else (rows, lens_all)
 
-    host = _prepare_synthesis_group(utts, n_real=len(utts), keys=keys,
-                                    max_b=max_b, fs=fs, mag_dim=mag_dim,
-                                    phase_dim=phase_dim)
-
-    def dev(name, np_dtype=None):
-        a = host[name] if np_dtype is None else host[name].astype(np_dtype)
-        return torch.from_numpy(a).to(device)
-
-    tables = SynthesisTables(fs=fs, fft_len=fft_syn, alpha=alpha,
-                             alpha_phase=alpha_phase, mag_dim=mag_dim,
-                             mag_dim_ph=mag_dim_ph, pf_type=pf_type,
-                             out_hpf="spectral" if b_out_hpf else None
-                             ).to(device)
-    bufs = _fused_batch_impl(
-        dev("feats"), dev("voi"), dev("pm"), dev("shifts"), dev("nfrms"),
-        dev("ns_lens"), dev("keys", np.int64), fs=fs, fft_len=fft_syn,
-        alpha=alpha, alpha_phase=alpha_phase, mag_dim=mag_dim,
-        phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
-        b_voi_ap_win=b_voi_ap_win, per_phase_type=per_phase_type,
-        out_len_max=host["O"], b_out_hpf=b_out_hpf, pf_type=pf_type,
-        tables=tables)
+    cfg = _synthesis_config(utts, fs, fft_syn, alpha, alpha_phase,
+                            b_voi_ap_win, per_phase_type, b_out_hpf, pf_type)
+    host = _prepare_synthesis_group(
+        utts, n_real=len(utts), keys=keys, max_b=max_b, fs=fs,
+        mag_dim=cfg["mag_dim"], phase_dim=cfg["phase_dim"],
+        transport=transport)
+    dev = _upload_synthesis_group(host, device)
+    bufs = _execute_synthesis_group(dev, cfg, _group_tables(cfg, device),
+                                    pcm16=pcm16)
     out_lens = host["out_lens"]
     n_real = host["n_real"]
-    if pcm16:
-        bufs = _pcm16_kernel(bufs, torch.tensor(out_lens, device=device))
     if not block_result:
         return bufs, out_lens[:n_real]
     bufs = bufs.cpu().numpy()
     return [np.asarray(bufs[i][:out_lens[i]], np.float64)
             for i in range(n_real)]
+
+
+def synthesis_batches_pipelined(batches, fs: int,
+                                fft_len: int | None = None,
+                                b_voi_ap_win: bool = True,
+                                per_phase_type: str = "magphase",
+                                alpha_phase: float | None = None,
+                                b_out_hpf: bool = True,
+                                pf_type: str = "no",
+                                mesh=None, pcm16: bool = False,
+                                transport: str = "f16",
+                                consume=None,
+                                det_fft_syn: bool = True,
+                                *, device="cuda"):
+    """Threaded four-stage corpus synthesis: prepare -> upload -> execute
+    -> download, one thread per stage (utils/pipeline.py:run_staged) and,
+    on a card, one CUDA stream per device stage (utils/transfer.py), so a
+    group's upload and the previous group's download overlap the current
+    group's kernels.
+
+    ``batches``: iterable of (utts, keys[, tag]) with utts as in
+    synthesis_from_compressed_batch, keys a (len(utts), 2) uint32
+    per-utterance key array, and ``tag`` an opaque value handed back as
+    ``host['tag'] = (tag, first_utt_index)`` for corpus attribution.
+    Yields one result per device GROUP (a batch may split into several
+    groups under the frame-element budget), in order: ``consume(bufs,
+    host)`` if given, run on the download thread, with ``bufs`` the
+    group's real rows on the host, each cut to its valid length (int16
+    with ``pcm16``, else float32), and ``host['out_lens']`` those lengths;
+    else the float64 waveform list.
+
+    ``det_fft_syn`` defaults to True HERE (unlike the blocking entry): the
+    geometry is computed per caller-supplied batch, so with an adaptive
+    FFT the output would depend on how the caller chunks batches.  Each
+    group goes through the same halves as the blocking entry, so a group's
+    output equals synthesis_from_compressed_batch's for the same
+    utterances, keys and det_fft_syn.  A stage that raises tears the
+    pipeline down and re-raises here.  Options as the blocking entry's;
+    ``device``: where the work runs.
+    """
+    _check_synthesis_options(transport, mesh, pf_type, per_phase_type)
+    device = torch.device(device)
+    alpha = define_alpha(fs)
+    if fft_len is None:
+        fft_len = define_fft_len(fs)
+    if alpha_phase is None:
+        alpha_phase = alpha
+    legs = transfer.Legs(device)
+    tables = {}                 # per configuration, on the execute thread
+
+    def gen_groups():
+        for batch in batches:
+            utts, keys = batch[0], batch[1]
+            tag = batch[2] if len(batch) > 2 else None
+            keys = np.asarray(keys, np.uint32).reshape(len(utts), 2)
+            fft_syn, max_b = _synthesis_geometry(utts, fs, fft_len,
+                                                 det_fft_syn)
+            cfg = _synthesis_config(utts, fs, fft_syn, alpha, alpha_phase,
+                                    b_voi_ap_win, per_phase_type, b_out_hpf,
+                                    pf_type)
+            for i in range(0, len(utts), max_b):
+                part = utts[i:i + max_b]
+                host = _prepare_synthesis_group(
+                    part, n_real=len(part), keys=keys[i:i + max_b],
+                    max_b=max_b, fs=fs, mag_dim=cfg["mag_dim"],
+                    phase_dim=cfg["phase_dim"], transport=transport)
+                host["tag"] = (tag, i)
+                host["cfg"] = cfg
+                yield host
+
+    def upload(host):
+        return _upload_synthesis_group(host, device, legs.upload)
+
+    def execute(dev):
+        cfg = dev["host"]["cfg"]
+        with transfer.on(legs.compute):
+            transfer.adopt(dev["args"] + dev["extra"] + (dev["lens"],),
+                           legs.compute, dev["event"])
+            key = tuple(sorted(cfg.items()))
+            if key not in tables:
+                tables[key] = _group_tables(cfg, device)
+            bufs = _execute_synthesis_group(dev, cfg, tables[key],
+                                            pcm16=pcm16)
+            return bufs, dev["host"], transfer.record(legs.compute)
+
+    def download(x):
+        bufs, host, event = x
+        rows = transfer.rows_to_host(bufs, host["out_lens"][:host["n_real"]],
+                                     legs.download, event)
+        if consume is not None:
+            return consume(rows, host)
+        return [np.asarray(r, np.float64) for r in rows]
+
+    from ..utils.pipeline import run_staged
+    yield from run_staged(gen_groups(), [upload, execute, download])

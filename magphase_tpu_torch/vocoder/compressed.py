@@ -388,6 +388,48 @@ def _noise_frames_direct(keys, pm, nfrms, ns_len, fft_len: int,
     return torch.where(in_frame, vals * win.to(dtype), 0.0)
 
 
+# cuFFT picks its algorithm by the batch's row count, and below some count
+# a row's transform differs in its last bits with the count (seen on the
+# H100 for 2048-point transforms at 1,024-3,072 rows, not at 4,096-8,192):
+# the synthesis FFTs run on the card in calls of exactly _FFT_ROWS rows, so
+# an utterance's samples do not depend on the batch around it
+_FFT_ROWS = 4096
+
+
+def _rows_fft(fn, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``fn`` (torch.fft.rfft or irfft) over the last axis of ``x``; on the
+    card in calls of _FFT_ROWS rows (_fft_in_calls)."""
+    if x.device.type != "cuda":
+        return fn(x, **kw)
+    y = _fft_in_calls(fn, x.reshape(-1, x.shape[-1]), _FFT_ROWS, **kw)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def _fft_in_calls(fn, rows: torch.Tensor, per_call: int,
+                  **kw) -> torch.Tensor:
+    """``fn`` over the (n, m) ``rows`` in calls of exactly ``per_call``
+    rows, the last one padded with zero rows."""
+    n = rows.shape[0]
+    out = None
+    for i in range(0, n, per_call):
+        c = rows[i:i + per_call]
+        if c.shape[0] < per_call:
+            c = torch.cat([c, c.new_zeros(per_call - c.shape[0],
+                                          c.shape[1])])
+        y = fn(c, **kw)
+        if out is None:
+            out = y.new_empty(n, y.shape[-1])
+        out[i:i + per_call] = y[:n - i]
+    return out
+
+
+# the noise gain's fixed point: terms in steps of 2^-20, each below 2^14 (a
+# finite float32 has |log| < 104, so log^2 < 1.1e4); up to 2^26 terms of an
+# utterance sum below 2^60 in int64
+_GAIN_FIX = float(1 << 20)
+_GAIN_TERM_MAX = float(1 << 14)
+
+
 def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
                          ns_len, keys, *, fs: int, fft_len: int,
                          alpha: float, b_voi_ap_win: bool,
@@ -427,16 +469,27 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
     m_frm_ns = _noise_frames_direct(
         keys, pm, nfrms, ns_len, fft_len,
         VOI_NOISE if b_voi_ap_win else HANNING, HANNING, voi, dtype)
-    m_ns_cmplx = torch.fft.rfft(m_frm_ns)
+    m_ns_cmplx = _rows_fft(torch.fft.rfft, m_frm_ns)
     del m_frm_ns
 
     # --- noise gain normalisation (899-906): sqrt(exp(mean(log|NS|_mid^2)))
     log2 = protected_log(torch.abs(m_ns_cmplx[..., 1:-1])) ** 2
 
     def _masked_gain(mask):
+        """The mean over an utterance's masked frames as an exact sum of
+        fixed-point terms: a float sum's order follows the batch's shape on
+        the card, and with it the gain's last bits (and so PCM16 samples);
+        an integer sum has no order.  A term of _GAIN_TERM_MAX or more can
+        only be MAGIC^2 (the log of a zero bin), whose float sum gives an
+        infinite gain: kept as such."""
         cnt = torch.clamp(mask.sum(dim=1), min=1) * (h - 2)
-        s = torch.where(mask[..., None], log2, 0.0).sum(dim=(1, 2))
-        return torch.sqrt(torch.exp(s / cnt))
+        terms = torch.where(mask[..., None], log2, 0.0)
+        q = torch.round(torch.clamp(terms, max=_GAIN_TERM_MAX) * _GAIN_FIX)
+        s = (q.to(torch.int64).sum(dim=(1, 2)).to(torch.float64)
+             / _GAIN_FIX).to(dtype)
+        gain = torch.sqrt(torch.exp(s / cnt))
+        return torch.where(terms.amax(dim=(1, 2)) >= _GAIN_TERM_MAX,
+                           torch.inf, gain)
 
     gain = torch.where(voi, _masked_gain(voi)[:, None],
                        torch.where(unv, _masked_gain(unv)[:, None], 1.0))
@@ -483,7 +536,7 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
         raise ValueError(f"out_hpf={out_hpf!r}: only 'spectral' is ported")
 
     # --- to time domain (963-965), fftshift folded in as (-1)^k
-    m_frm = torch.fft.irfft(m_syn * tables.alt, n=fft_len)
+    m_frm = _rows_fft(torch.fft.irfft, m_syn * tables.alt, n=fft_len)
     del m_syn
 
     # --- anti-ringing window (968-973) + PSOLA overlap-add (976)

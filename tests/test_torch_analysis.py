@@ -273,11 +273,11 @@ def test_format_for_modelling_matches_jax():
 # guards
 
 @pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(feat_dtype=np.uint8),
+    dict(mesh=object()), dict(feat_dtype=np.int8),
     dict(feat_dtype=np.float64), dict(env="clip30")])
 def test_unported_analysis_options_raise(bad, monkeypatch):
-    """A mesh, uint8 (or any non-float16/32) output and tracker whitening
-    raise ValueError up front."""
+    """A mesh, any output dtype but float16, float32 and uint8 (int8,
+    float64) and tracker whitening raise ValueError up front."""
     env = bad.pop("env", None)
     if env is not None:
         monkeypatch.setenv("MAGPHASE_TRACKER_WHITEN", env)

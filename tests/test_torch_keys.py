@@ -176,7 +176,8 @@ def _public_names(module):
 
 @pytest.mark.parametrize("pair", [
     (magphase_tpu, magphase_tpu_torch),
-    (magphase_tpu.epochs, magphase_tpu_torch.epochs)], ids=["top", "epochs"])
+    (magphase_tpu.epochs, magphase_tpu_torch.epochs),
+    (magphase_tpu.io, magphase_tpu_torch.io)], ids=["top", "epochs", "io"])
 def test_port_exports_hold_the_jax_exports(pair):
     jmod, tmod = pair
     want = _public_names(jmod)
@@ -197,21 +198,27 @@ def test_get_pitch_marks_is_extract_epochs_times():
 
 
 def test_import_builds_no_kernel():
-    """Importing the package, its entries and its kernel modules in a fresh
-    interpreter loads no kernel library, writes nothing to the build
-    directory and imports no jax: each _library() stays lazy."""
+    """Importing the package, its entries, its kernel modules, the CLI, the
+    daemon and the native I/O binding in a fresh interpreter loads no
+    kernel or native library, writes nothing to the build directories and
+    imports no jax: each _library() and the native _load() stay lazy."""
     code = (
         "import sys\n"
         "import magphase_tpu_torch, magphase_tpu_torch.epochs\n"
         "import magphase_tpu_torch.parallel\n"
+        "import magphase_tpu_torch.cli, magphase_tpu_torch.serve\n"
+        "from magphase_tpu_torch.io import native\n"
         "from magphase_tpu_torch.kernels import dft, framing, walk\n"
         "assert 'jax' not in sys.modules\n"
+        "assert native._load.cache_info().currsize == 0\n"
         "for m in (dft, framing, walk):\n"
         "    assert m._library.cache_info().currsize == 0, m.__name__\n")
 
+    from magphase_tpu_torch.io import native
+
     def listing():
-        d = _build.BUILD_DIR
-        return sorted(p.name for p in d.iterdir()) if d.exists() else None
+        return [sorted(p.name for p in d.iterdir()) if d.exists() else None
+                for d in (_build.BUILD_DIR, native.BUILD_DIR)]
 
     before = listing()
     subprocess.run([sys.executable, "-c", code], check=True,
