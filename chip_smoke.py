@@ -47,7 +47,20 @@ it and read just after:
   daemon with two generate --server requests; K1, K2 and K4 held to their
   plain versions on the CLI's own calls, byte-identical wavs across the
   runners, batch sizes and requests, no hidden fallback, card against
-  CPU, and wall time, audio-s/s and peak memory per command.
+  CPU, and wall time, audio-s/s and peak memory per command;
+- the variant vocoders (run_variants_path) on 4 wavs of 3 s at 48 kHz,
+  fft_len 4096, 60/45 dims: type1 analysis (variable and 5 ms rate) into
+  type1 synthesis ('magphase', 'min_phase', constant rate), type2
+  analysis (with and without b_norm_mag) into type2 synthesis, phase-comp
+  analysis into phase-comp synthesis, the type1-old synthesis (and its
+  'det' and 'whole' Griffin-Lim forms), griffin_lim on lossless
+  magnitudes for each phase_init (K1 with per-frame VOI_NOISE / HANNING
+  windows, K2); K1 and K2 held to their plain versions on the path's own
+  calls, card against CPU on the first wav, cold and warm wall ms and
+  peak memory per entry; then one 128-utterance serving request under
+  MAGPHASE_HPF_MODE=blocked, byte-identical across two batch
+  compositions, and extract_epochs under MAGPHASE_TRACKER_WHITEN=clip30
+  and cube, card against CPU.
 
 ``--profile`` adds a torch.profiler pass over one warm 128-utterance
 serving request, one warm 192-utterance analysis request and one warm
@@ -1944,6 +1957,429 @@ def run_cli_path(dev, seed: int) -> tuple:
     return counts, kchecks
 
 
+VARIANT_UTTS = 4
+VARIANT_WARM_RUNS = 3
+# card against CPU on one shorter witness, without the repeats of the
+# b_norm_mag streams and two of the four Griffin-Lim inits
+VARIANT_CMP_SECONDS = 1.0
+VARIANT_CMP_SKIP = ("type2 analysis b_norm_mag", "type2 synthesis b_norm_mag",
+                    "griffin_lim linear", "griffin_lim array")
+# variants, card against CPU from the same inputs.  Syntheses: the CPU
+# tests hold the port against the JAX package at up to 1e-6 of the peak
+# (tests/test_torch_variants.py, float32 FFT round-off of two FFT
+# libraries), the card's cuFFT being a third: TOL_CUDA_VS_CPU, as the
+# serving request.  Griffin-Lim runs of 10-50 iterations: the phase of
+# near-zero bins diverges between FFT libraries, so they are held by their
+# magnitude (the 512-point STFT of the output, relative in the Frobenius
+# norm, or the spectral convergence against the target magnitude), and
+# how far apart two runs land depends on the input: the card may differ
+# from the CPU by at most GL_SPREAD_FACTOR times the most that GL_SPREAD_RUNS
+# CPU runs from inputs perturbed by one float32 ulp differ from the CPU's
+# own run, and never by more than TOL_GL_REL need (the CPU tests' bound
+# against JAX, measured 3.9e-4 there for 50 iterations).
+TOL_GL_REL = 1e-3
+GL_SPREAD_RUNS = 3
+GL_SPREAD_FACTOR = 2.0
+# type-2 analysis, card against CPU: its magnitude is the true envelope
+# of the lossless magnitudes, which lifts each frame's valleys over 6-32
+# iterations, and the weak bins' FFT round-off (relative to the frame's
+# peak) moves the lift: on the CPU the port and the JAX package differ by
+# up to 0.0057 on the log-mel magnitude (0.11 dB on the envelope) for a
+# 1 s witness of this script; the bound is ten times that.  Its phase
+# streams are held to TOL_ANALYSIS_STREAMS.
+TOL_TYPE2_MAG = 0.057
+# the true envelope alone from the same input (ncoeffs 600, as the type-2
+# analysis), card against CPU: a frame freezes once its mean |spectrum -
+# smoothed| drops below 0.1 dB, a threshold round-off may cross an
+# iteration apart on the two devices.  Such frames are counted; the rest
+# agree within ten times the CPU's port-vs-JAX difference on one input
+# (6.1e-5 dB measured on that witness; tests/test_torch_spectral.py holds
+# the freeze iterations equal on 60 frames).
+TOL_ENVELOPE_DB = 6.1e-4
+# whitened tracking, card against CPU: a clipped or cubed segment across a
+# voicing boundary is nearly all zeros, its NCCF normalisation sits at its
+# 1e-12 floor and magnifies round-off (tests/test_torch_tracker.py::
+# test_whitened_nccf_matches_jax), so marks there may move: at least this
+# share of the CPU's marks must have a card mark within one sample
+MIN_WHITEN_MARK_MATCH = 0.9
+
+
+def _stft_rel(a, b) -> float:
+    """||STFT-mag(a) - STFT-mag(b)|| / ||STFT-mag(b)||, 512 points."""
+    from scipy import signal as sp_signal
+    sa = np.abs(sp_signal.stft(a, FS, nperseg=512)[2])
+    sb = np.abs(sp_signal.stft(b, FS, nperseg=512)[2])
+    return float(np.linalg.norm(sa - sb) / np.linalg.norm(sb))
+
+
+def _spectral_convergence(mag, shifts, sig, device) -> float:
+    """||mag(sig) - target|| / ||target|| of a Griffin-Lim output, its
+    magnitude re-analysed at the target's marks."""
+    from magphase_tpu_torch.vocoder import lossless
+    pm = np.cumsum(shifts)
+    got = lossless.analysis_with_del_comp_from_pm(
+        sig, FS, pm, np.ones(len(pm)), fft_len=4096, device=device)[0]
+    n = min(len(got), len(mag))
+    return float(np.linalg.norm(got[:n] - mag[:n]) / np.linalg.norm(mag[:n]))
+
+
+def _perturbed(results: dict, seed: int) -> dict:
+    """``results`` with the float streams that the syntheses and
+    Griffin-Lim read (the type-1 features and the lossless magnitude)
+    each multiplied by 1 + u * 2^-23, u uniform in [-1, 1): a
+    perturbation of one float32 ulp."""
+    rng = np.random.default_rng(seed)
+    out = dict(results)
+    for name in ("type1 analysis", "lossless analysis"):
+        first = np.asarray(results[name][0])
+        out[name] = (first * (1.0 + rng.uniform(-1.0, 1.0, first.shape)
+                              * 2.0 ** -23),) + tuple(results[name][1:])
+    return out
+
+
+def _gl_measure(cpu: dict):
+    """measure(name, a, b): the relative difference of two Griffin-Lim
+    outputs of entry ``name``: of their spectral convergence against the
+    target magnitude for griffin_lim, of their STFT magnitudes for the
+    type1-old syntheses."""
+    def measure(name, a, b):
+        if not name.startswith("griffin_lim"):
+            return _stft_rel(a, b)
+        mag, shifts = cpu["lossless analysis"][0], cpu["lossless analysis"][4]
+        sa = _spectral_convergence(mag, shifts, a[0], "cpu")
+        sb = _spectral_convergence(mag, shifts, b[0], "cpu")
+        return abs(sa - sb) / sb
+    return measure
+
+
+def _variant_entries(wav, pm_sec, voi, key, device, first: bool):
+    """The variants path on one wav as (name, call) pairs, in order: each
+    call takes the results so far (a dict) and returns its own.  ``first``
+    adds the type1-old Griffin-Lim syntheses and the Griffin-Lim runs."""
+    import magphase_tpu_torch.vocoder as V
+    from magphase_tpu_torch.io import wav as wav_io
+    from magphase_tpu_torch.utils.keys import split
+    ep = dict(pm_sec=pm_sec, voi=voi, device=device)
+    dims = dict(mag_dim=MAG_DIM, phase_dim=PHASE_DIM)
+    syn = dict(key=key, device=device)
+    e = [("type1 analysis", lambda r: V.analysis_compressed_type1(
+            wav, **dims, **ep)),
+         ("type1 analysis const-rate", lambda r: V.analysis_compressed_type1(
+             wav, const_rate_ms=5.0, **dims, **ep)),
+         ("type1 synthesis", lambda r: V.synthesis_from_compressed_type1(
+             *r["type1 analysis"][:4], FS, **syn)),
+         ("type1 synthesis min_phase",
+          lambda r: V.synthesis_from_compressed_type1(
+              *r["type1 analysis"][:4], FS, per_phase_type="min_phase",
+              **syn)),
+         ("type1 synthesis const-rate",
+          lambda r: V.synthesis_from_compressed_type1(
+              *r["type1 analysis const-rate"][:4], FS, b_const_rate=True,
+              **syn)),
+         ("type2 analysis", lambda r: V.analysis_compressed_type2(
+             wav, **dims, **ep)),
+         ("type2 analysis b_norm_mag", lambda r: V.analysis_compressed_type2(
+             wav, b_norm_mag=True, **dims, **ep)),
+         ("type2 synthesis", lambda r: V.synthesis_from_compressed_type2(
+             *r["type2 analysis"][:4], FS, **syn)),
+         ("type2 synthesis b_norm_mag",
+          lambda r: V.synthesis_from_compressed_type2(
+              *r["type2 analysis b_norm_mag"][:4], FS, **syn)),
+         ("phase-comp analysis",
+          lambda r: V.analysis_compressed_type1_with_phase_comp(
+              wav, **dims, **ep)),
+         ("phase-comp synthesis",
+          lambda r: V.synthesis_from_compressed_type1_with_phase_comp(
+              *r["phase-comp analysis"][:4], FS, **syn)),
+         ("type1-old synthesis",
+          lambda r: V.synthesis_from_compressed_type1_old_with_griffin_lim(
+              *r["type1 analysis"][:4], FS, **syn))]
+    if not first:
+        return e
+    for gl in ("det", "whole"):
+        e.append((f"type1-old synthesis gl={gl}", lambda r, gl=gl:
+                  V.synthesis_from_compressed_type1_old_with_griffin_lim(
+                      *r["type1 analysis"][:4], FS, griff_lim_type=gl,
+                      **syn)))
+    e.append(("lossless analysis", lambda r: V.analysis_with_del_comp_from_pm(
+        wav_io.read_wav(wav)[0], FS, pm_sec * FS, voi, fft_len=4096,
+        device=device)))
+    for init in ("random", "linear", "min_phase", "array"):
+        e.append((f"griffin_lim {init}", lambda r, init=init: V.griffin_lim(
+            r["lossless analysis"][0], r["lossless analysis"][4],
+            phase_init=(init if init != "array" else np.random.default_rng(
+                0).uniform(-np.pi, np.pi, r["lossless analysis"][0].shape)),
+            key=split(key, 2)[1], device=device)))
+    return e
+
+
+def _check_variant_outputs(name, out, sig_len: int) -> None:
+    """Every waveform finite, not silent and of the length its features
+    give (2 pm[-1] - pm[-2] + 1; within 5% of the signal's at the
+    constant rate, whose marks come from the backward shift walk); every
+    analysis stream finite."""
+    if "analysis" in name:
+        if not all(np.all(np.isfinite(np.asarray(x, np.float64)))
+                   for x in out[:4]):
+            raise AssertionError(f"variants: {name}: non-finite streams")
+        return
+    w = out[0] if name.startswith("griffin_lim") else out
+    if not (np.all(np.isfinite(w)) and np.std(w) > 1e-4):
+        raise AssertionError(f"variants: {name}: non-finite or silent")
+    if not abs(len(w) - sig_len) <= 0.05 * sig_len:
+        raise AssertionError(f"variants: {name}: {len(w)} samples for a "
+                             f"{sig_len}-sample signal")
+
+
+def run_variants_path(dev, seed: int, feats, keys_all) -> tuple:
+    """Path 7, the variant vocoders on VARIANT_UTTS witness wavs of
+    UTT_SECONDS (48 kHz, fft_len 4096, 60/45 dims), with the launch counts
+    from 0: type1 analysis (variable and 5 ms rate) into type1 synthesis
+    ('magphase', 'min_phase', constant rate), type2 analysis (with and
+    without b_norm_mag) into type2 synthesis, phase-comp analysis into
+    phase-comp synthesis, the type1-old synthesis (and on the first wav
+    its 'det' and 'whole' Griffin-Lim forms), and griffin_lim on the first
+    wav's lossless magnitudes for each phase_init; then one 128-utterance
+    serving request under MAGPHASE_HPF_MODE=blocked in two batch
+    compositions, and extract_epochs under MAGPHASE_TRACKER_WHITEN=clip30
+    and cube.  K1 and K2 must launch; every call of them on the variants
+    entries is held to its plain version.  The entries run on the CPU too,
+    on a shorter witness wav, card against CPU.  Logs cold and warm wall
+    ms and peak memory per entry.  Returns (launch counts, kernel
+    checks)."""
+    import tempfile
+
+    from magphase_tpu_torch.core.spectral import true_envelope_freeze
+    from magphase_tpu_torch.epochs import extract_epochs
+    from magphase_tpu_torch.io import wav as wav_io
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    from magphase_tpu_torch.parallel import batch
+    from magphase_tpu_torch.utils.keys import prng_key, split
+
+    rng = np.random.default_rng(seed + 2000)
+    sigs, marks, vois = make_witness_signals(rng, VARIANT_UTTS, UTT_SECONDS)
+    keys = split(prng_key(seed + 7), VARIANT_UTTS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_") as tmp:
+        wavs = []
+        for i, x in enumerate(sigs):
+            wavs.append(os.path.join(tmp, f"variant_{i}.wav"))
+            wav_io.write_wav(wavs[-1], x, FS)
+        paths = [_variant_entries(w, m / FS, v, k, dev, i == 0)
+                 for i, (w, m, v, k) in enumerate(zip(wavs, marks, vois,
+                                                      keys))]
+
+        K.reset_launch_counts()
+        K4.reset_launch_counts()
+        cold, results = {}, []
+        with recording((K, "frames"), (K, "ola"), (K4, "walk")) as rec:
+            for i, entries in enumerate(paths):
+                r = {}
+                for name, fn in entries:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r[name] = fn(r)
+                    torch.cuda.synchronize()
+                    if i == 0:
+                        cold[name] = (time.perf_counter() - t0) * 1000
+                    _check_variant_outputs(name, r[name], len(sigs[i]))
+                results.append(r)
+        counts_entries = {**K.launch_counts(), **K4.launch_counts()}
+        log(f"[variants] launches on the variants entries of {VARIANT_UTTS} "
+            f"wavs: {counts_entries}")
+        for name in ("frames", "ola"):
+            if counts_entries[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     "variants path")
+        kchecks = check_path_kernels(rec, "variants")
+        del rec
+        log("[variants] kernels against their plain versions on the variants "
+            "entries' own inputs and results: " + "; ".join(
+                f"{n} {c['calls']} calls at {c['shapes'][:4]}"
+                f"{' ...' if len(c['shapes']) > 4 else ''} max |kernel - "
+                f"plain| {c['max_abs_err']:.3g}" for n, c in kchecks.items())
+            + f" (bounds: frames {TOL_FRAMES}, ola bitwise)")
+
+        # warm wall times and peak memory per entry, on the first wav
+        r = {}
+        for name, fn in paths[0]:
+            walls = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(VARIANT_WARM_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r[name] = fn(r)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1000)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            log(f"[variants] {name}, one {UTT_SECONDS} s wav: cold "
+                f"{cold[name]:.1f} ms, warm median {np.median(walls):.1f} ms "
+                f"of {VARIANT_WARM_RUNS} (min {min(walls):.1f}, max "
+                f"{max(walls):.1f}), peak {peak:.1f} MiB")
+
+        # card against CPU on a shorter witness wav (the CPU's Griffin-Lim
+        # and true envelope take minutes at 3 s): each analysis on both
+        # devices, each synthesis on both from the CPU's features
+        x, m, v = (a[0] for a in make_witness_signals(
+            rng, 1, VARIANT_CMP_SECONDS))
+        cmp_wav = os.path.join(tmp, "variant_cmp.wav")
+        wav_io.write_wav(cmp_wav, x, FS)
+
+        def cmp_entries(device):
+            return [(n, f) for n, f in _variant_entries(
+                cmp_wav, m / FS, v, keys[0], device, True)
+                if n not in VARIANT_CMP_SKIP]
+
+        t0 = time.perf_counter()
+        cpu = {}
+        for name, fn in cmp_entries("cpu"):
+            cpu[name] = fn(cpu)
+        dt_cpu = time.perf_counter() - t0
+        cpu_fns = dict(cmp_entries("cpu"))
+        gl_measure = _gl_measure(cpu)
+        errs, syn_err, gl_err = {}, {}, {}
+        for name, fn in cmp_entries(dev):
+            c = cpu[name]
+            if name == "lossless analysis":
+                continue    # held card against CPU on the copy-synthesis path
+            if "analysis" in name:
+                g = fn({})
+                errs[name] = ([float(np.max(np.abs(np.asarray(
+                    a, np.float64) - np.asarray(b, np.float64))))
+                    for a, b in zip(g[:3], c[:3])],
+                    bool(np.array_equal(g[3], c[3])))
+                continue
+            g = fn(cpu)     # the card's synthesis from the CPU's features
+            if name.startswith("griffin_lim") or "gl=" in name:
+                spread = max(gl_measure(name, cpu_fns[name](_perturbed(
+                    cpu, seed)), c) for seed in range(GL_SPREAD_RUNS))
+                gl_err[name] = (gl_measure(name, g, c), spread)
+            else:
+                if g.shape != c.shape:
+                    raise AssertionError(f"variants: {name}: {g.shape} on "
+                                         f"the card, {c.shape} on the CPU")
+                syn_err[name] = float(np.abs(g - c).max() / np.abs(c).max())
+        log(f"[variants] CUDA vs CPU on a {VARIANT_CMP_SECONDS} s witness "
+            "wav, mel streams (max |diff| of mag, real, imag; lf0 equal): "
+            + ", ".join(f"{n} {e[0][0]:.3g} {e[0][1]:.3g} {e[0][2]:.3g} "
+                        f"{e[1]}" for n, e in errs.items())
+            + f"; bounds {TOL_ANALYSIS_STREAMS}, the type2 magnitude "
+            f"{TOL_TYPE2_MAG}; the CPU took {dt_cpu:.1f} s for the wav's "
+            "entries")
+        # the true envelope from the same magnitudes on both devices
+        mag = torch.from_numpy(cpu["lossless analysis"][0].astype(
+            np.float32))
+        env_c, at_c = true_envelope_freeze(mag, ncoeffs=600)
+        env_g, at_g = true_envelope_freeze(mag.to(dev), ncoeffs=600)
+        same = (at_g.cpu() == at_c).numpy()
+        env_db = np.abs(20 * np.log10(env_g.cpu().numpy())
+                        - 20 * np.log10(env_c.numpy())).max(axis=1)
+        env_err = float(np.nanmax(env_db[same], initial=0.0))
+        log(f"[variants] true envelope (ncoeffs 600) of the witness's "
+            f"{len(same)} lossless frames, card against CPU: "
+            f"{int((~same).sum())} frames froze at another iteration; the "
+            f"others within {env_err:.3g} dB (bound {TOL_ENVELOPE_DB}); "
+            f"frames freeze at iterations {int(at_c.min())}-"
+            f"{int(at_c.max())}")
+        log("[variants] CUDA vs CPU syntheses from the same features "
+            "(max|diff|/peak): " + ", ".join(
+                f"{n} {e:.3g}" for n, e in syn_err.items())
+            + f"; bound {TOL_CUDA_VS_CPU}")
+        log("[variants] CUDA vs CPU Griffin-Lim (relative difference of the "
+            "STFT magnitude, or of the spectral convergence), beside the "
+            f"most that {GL_SPREAD_RUNS} CPU runs from one-ulp perturbed "
+            "inputs differ from the CPU's: " + ", ".join(
+                f"{n} {e[0]:.3g} (spread {e[1]:.3g})"
+                for n, e in gl_err.items())
+            + f"; bound max({GL_SPREAD_FACTOR} x spread, {TOL_GL_REL})")
+        bad = ([n for n, e in errs.items() if not e[1] or max(e[0][1:]) >
+                TOL_ANALYSIS_STREAMS or e[0][0] > (
+                    TOL_TYPE2_MAG if "type2" in n else TOL_ANALYSIS_STREAMS)]
+               + (["true envelope"] if env_err > TOL_ENVELOPE_DB else [])
+               + [n for n, e in syn_err.items() if e > TOL_CUDA_VS_CPU]
+               + [n for n, e in gl_err.items()
+                  if e[0] > max(GL_SPREAD_FACTOR * e[1], TOL_GL_REL)])
+        if bad:
+            raise AssertionError(f"variants, card vs CPU out of bounds: {bad}")
+
+    # one serving request under MAGPHASE_HPF_MODE=blocked, in two batch
+    # compositions of the same utterances: byte-identical audio
+    n = len(feats)
+    order = np.random.default_rng(seed + 3).permutation(n)
+    old = os.environ.get("MAGPHASE_HPF_MODE")
+    os.environ["MAGPHASE_HPF_MODE"] = "blocked"
+    try:
+        walls = []
+        outs = []
+        for idx in (np.arange(n), order, np.arange(n)):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = batch.synthesis_from_compressed_batch(
+                [feats[i] for i in idx], FS, pf_type="magphase",
+                keys=keys_all[idx], det_fft_syn=True, device=dev)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1000)
+            outs.append(dict(zip(idx.tolist(), w)))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        if old is None:
+            del os.environ["MAGPHASE_HPF_MODE"]
+        else:
+            os.environ["MAGPHASE_HPF_MODE"] = old
+    same = sum(np.array_equal(outs[0][i], outs[1][i]) for i in range(n))
+    for i in range(n):
+        w = outs[0][i]
+        if not (len(w) == expected_out_len(feats[i][3])
+                and np.all(np.isfinite(w)) and np.std(w) > 1e-4):
+            raise AssertionError(f"blocked request, utt {i}: bad output")
+    spectral = batch.synthesis_from_compressed_batch(
+        feats, FS, pf_type="magphase", keys=keys_all, det_fft_syn=True,
+        device=dev)
+    d_mode = max(float(np.abs(a - outs[0][i]).max()) for i, a in
+                 enumerate(spectral))
+    audio_s = sum(len(w) for w in outs[0].values()) / FS
+    log(f"[variants] MAGPHASE_HPF_MODE=blocked, {n} utts ({audio_s:.1f} "
+        f"audio-s), det_fft_syn: {same} of {n} utterances byte-identical "
+        f"across two batch compositions (in order, and permuted); wall "
+        f"{walls[0]:.1f} ms cold, {walls[2]:.1f} ms warm "
+        f"({audio_s / walls[2] * 1000:.1f} audio-s/s), peak "
+        f"{peak / 2 ** 30:.3f} GiB; max |blocked - spectral| "
+        f"{d_mode:.3g} (the two forms of the high-pass)")
+    if same != n:
+        raise AssertionError(f"blocked high-pass: {n - same} utterances "
+                             "depend on the batch composition")
+
+    # the tracker's whitening modes, card against CPU
+    for mode in ("clip30", "cube"):
+        os.environ["MAGPHASE_TRACKER_WHITEN"] = mode
+        try:
+            match, total, n_g = 0, 0, 0
+            for x in sigs:
+                pm_g, _ = extract_epochs(x, FS, device=dev)
+                pm_c, _ = extract_epochs(x, FS, device="cpu")
+                a, b = np.round(pm_g * FS), np.round(pm_c * FS)
+                if not (len(a) > 50 and np.all(np.diff(a) > 0)):
+                    raise AssertionError(f"whiten={mode}: bad marks")
+                j = np.clip(np.searchsorted(a, b), 1, len(a) - 1)
+                near = np.minimum(np.abs(a[j] - b), np.abs(a[j - 1] - b))
+                match += int(np.sum(near <= 1))
+                total += len(b)
+                n_g += len(a)
+        finally:
+            del os.environ["MAGPHASE_TRACKER_WHITEN"]
+        log(f"[variants] MAGPHASE_TRACKER_WHITEN={mode}, {len(sigs)} "
+            f"witness signals: {n_g} marks on the card, {total} on the CPU, "
+            f"{match / total:.4f} of the CPU's within one sample of a card "
+            f"mark (bound {MIN_WHITEN_MARK_MATCH})")
+        if match < MIN_WHITEN_MARK_MATCH * total:
+            raise AssertionError(f"whiten={mode}: card and CPU marks differ")
+
+    counts = {**K.launch_counts(), **K4.launch_counts()}
+    log(f"[variants] launches during the variants path: {counts}")
+    return counts, kchecks
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2328,6 +2764,10 @@ def main() -> None:
     counts_c, cli_checks = run_cli_path(dev, args.seed)
     for name, r in cli_checks.items():
         results[name]["cli"] = r
+    counts_v, variants_checks = run_variants_path(dev, args.seed, feats,
+                                                  keys_all)
+    for name, r in variants_checks.items():
+        results[name]["variants"] = r
 
     if args.profile:
         profile_request(feats, keys_all, dev)
@@ -2337,7 +2777,7 @@ def main() -> None:
     launches = {**counts, "walk": counts_a["walk"],
                 "rfft_fused": counts_k5["rfft_fused"],
                 "irfft_fused": counts_k5["irfft_fused"]}
-    for counts_p in (counts_f, counts_c):
+    for counts_p in (counts_f, counts_c, counts_v):
         for name, c in counts_p.items():
             launches[name] += c
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
@@ -2348,7 +2788,7 @@ def main() -> None:
                     **{k: r[k] for k in ("bytes_bound_ms",
                                          "chain_ns_per_step",
                                          "padded_bound_ms", "copy_synthesis",
-                                         "facade", "cli")
+                                         "facade", "cli", "variants")
                        if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))

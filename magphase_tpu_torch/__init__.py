@@ -10,18 +10,16 @@ paths are hand-written CUDA C++ here: framing/OLA in ``csrc/framing.cu``
 ``csrc/dft.cu`` (``kernels/dft.py``); everything else is plain torch
 (cuFFT, cuBLAS).  Public entry points run on the card unless called with
 ``device="cpu"``.  Importing the package builds no kernel: each library
-is built at its first launch.
+is built at its first launch.  The top level exports the configuration
+and every name of ``vocoder`` (the JAX package's vocoder entries).
 """
+from . import vocoder as _vocoder
 from .config import (DEFAULT_16K, DEFAULT_48K, MagPhaseConfig, define_alpha,
                      define_crossfade_params, define_fft_len, from_jax_config)
-from .vocoder import (analysis_lossless, analysis_with_del_comp_from_pm,
-                      f0_to_shift, pm_to_shift, shift_to_pm,
-                      synthesis_from_lossless)
+from .vocoder import *  # noqa: F401,F403 (every name of vocoder.__all__)
 
 __version__ = "0.1.0"
 
 __all__ = ["MagPhaseConfig", "define_alpha", "define_fft_len",
            "define_crossfade_params", "from_jax_config", "DEFAULT_48K",
-           "DEFAULT_16K", "analysis_lossless",
-           "analysis_with_del_comp_from_pm", "synthesis_from_lossless",
-           "f0_to_shift", "shift_to_pm", "pm_to_shift"]
+           "DEFAULT_16K", *_vocoder.__all__]

@@ -73,3 +73,17 @@ def track_and_place_batch(sigs, n_sigs, n_frames, *, fs: int,
                                     n_frames_max=n_frames_max)
     return place_epochs_batch(y_snap, f0, voiced, n_sigs, n_frames, fs=fs,
                               m_max=m_max, frame_step=_walk_frame_step(fs))
+
+
+def track_and_place_one(sig, n_sig, n_frames, *, fs: int, n_frames_max: int,
+                        m_max: int):
+    """One utterance on its device: preprocess -> NCCF -> Viterbi -> the
+    epoch walk (K4, a batch of one).  sig (S,) padded float32 row, n_sig
+    and n_frames ints or 0-d tensors.  Returns (marks (m_max,) samples,
+    flags (m_max,), n_marks)."""
+    dev = sig.device
+    marks, flags, n_marks = track_and_place_batch(
+        sig[None], torch.as_tensor(n_sig, device=dev).reshape(1),
+        torch.as_tensor(n_frames, device=dev).reshape(1), fs=fs,
+        n_frames_max=n_frames_max, m_max=m_max)
+    return marks[0], flags[0], n_marks[0]

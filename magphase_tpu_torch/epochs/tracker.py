@@ -91,13 +91,23 @@ def _fir_lowpass(fc_hz: float, fs: int, taps: int = 255) -> np.ndarray:
 
 
 def nccf_whiten_mode() -> str:
-    """MAGPHASE_TRACKER_WHITEN, validated: only the default 'none' (raw
-    NCCF) is ported; any other value raises ValueError."""
+    """MAGPHASE_TRACKER_WHITEN, validated: the segment pre-whitening before
+    the correlation, 'none' (the default, raw NCCF), 'clipNN' (soft centre
+    clipping at NN percent of the segment's peak) or 'cube'.  Any other
+    value raises ValueError.  The JAX package measured neither clipping
+    nor cubing to help (its tracker.py:nccf_whiten_mode); they are
+    experiment knobs."""
     mode = os.environ.get("MAGPHASE_TRACKER_WHITEN", "none")
-    if mode != "none":
-        raise ValueError(f"MAGPHASE_TRACKER_WHITEN={mode!r}: only 'none' is "
-                         "supported")
-    return mode
+    if mode in ("none", "cube"):
+        return mode
+    if mode.startswith("clip"):
+        try:
+            float(mode[4:])
+            return mode
+        except ValueError:
+            pass
+    raise ValueError(f"MAGPHASE_TRACKER_WHITEN={mode!r}: expected 'none', "
+                     "'clipNN' or 'cube'")
 
 
 def _preprocess(sig: torch.Tensor, *, fs: int):
@@ -139,7 +149,7 @@ def _preprocess(sig: torch.Tensor, *, fs: int):
 
 
 def _nccf(xa: torch.Tensor, n_frames: torch.Tensor, *, n_frames_max: int,
-          fs_a: float = FS_ANALYSIS):
+          fs_a: float = FS_ANALYSIS, whiten: str = "none"):
     """NCCF of every frame: xa (B, na) analysis-rate rows, n_frames (B,).
     Returns (nccf (B, T, max_lag+1), valid (B, T)) with T = n_frames_max.
 
@@ -164,6 +174,18 @@ def _nccf(xa: torch.Tensor, n_frames: torch.Tensor, *, n_frames_max: int,
     xa_r = xa_r.reshape(B, -1, step)
     seg = torch.cat([xa_r[:, j:j + T] for j in range(nj)],
                     dim=2)[..., :seg_len]
+
+    if whiten.startswith("clip"):
+        # soft centre clipping per segment: the low-level samples (reverb
+        # tail, formant ringing) leave the correlation, the glottal-pulse
+        # peaks pass through
+        c = float(whiten[4:]) / 100.0
+        m = torch.amax(torch.abs(seg), dim=-1, keepdim=True)
+        seg = torch.sign(seg) * torch.clamp(torch.abs(seg) - c * m, min=0.0)
+    elif whiten == "cube":
+        seg = seg * seg * seg
+    elif whiten != "none":
+        raise ValueError(f"unknown whiten mode {whiten!r}")
 
     a = torch.where(torch.arange(seg_len, device=dev) < w, seg, 0.0)
     A = torch.fft.rfft(a, n=nfft)
@@ -252,10 +274,11 @@ def track_batch(sigs: torch.Tensor, n_frames: torch.Tensor, *, fs: int,
     """preprocess -> NCCF -> candidates -> Viterbi for padded rows
     sigs (B, S).  Returns (states (B, T), lags (B, T, N_CAND),
     y_snap (B, S), valid (B, T))."""
-    nccf_whiten_mode()
+    whiten = nccf_whiten_mode()
     fs_a = analysis_rate(fs)[0]
     xa, y_snap = _preprocess(sigs, fs=fs)
-    nccf, valid = _nccf(xa, n_frames, n_frames_max=n_frames_max, fs_a=fs_a)
+    nccf, valid = _nccf(xa, n_frames, n_frames_max=n_frames_max, fs_a=fs_a,
+                        whiten=whiten)
     vals, lags = _candidates(nccf)
     states = _viterbi(vals, lags, valid, fs_a=fs_a)
     return states, lags, y_snap, valid

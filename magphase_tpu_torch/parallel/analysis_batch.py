@@ -280,8 +280,8 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
     streams whatever ``feat_dtype`` says.  ``device``: where the work
     runs.
 
-    Not ported, each raising ValueError: a ``mesh`` and any
-    MAGPHASE_TRACKER_WHITEN other than 'none'."""
+    Not ported: a ``mesh`` (ValueError).  An unknown
+    MAGPHASE_TRACKER_WHITEN value raises ValueError too."""
     _check_options(mesh, feat_dtype)
     device = torch.device(device)
     alpha = define_alpha(fs)

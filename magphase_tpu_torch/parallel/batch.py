@@ -36,14 +36,18 @@ PF_TYPES = ("no", "magphase", "merlin")
 TRANSPORTS = ("f16", "int8")
 
 
-def _check_hpf_mode() -> None:
-    """MAGPHASE_HPF_MODE, validated: only the default 'spectral' form of
-    the output high-pass is ported; any other value is refused rather than
-    silently run as something else."""
+def hpf_mode() -> str:
+    """MAGPHASE_HPF_MODE, validated: the form of the 40 Hz output
+    high-pass, 'spectral' (the default: a per-bin gain on every frame
+    spectrum) or 'blocked' (the reference-faithful FFT convolution of each
+    utterance's overlap-added signal in sections of a fixed length).  Any
+    other value raises ValueError rather than silently running as
+    something else."""
     mode = os.environ.get("MAGPHASE_HPF_MODE", "spectral")
-    if mode != "spectral":
-        raise ValueError(f"MAGPHASE_HPF_MODE={mode!r}: only 'spectral' is "
-                         "supported")
+    if mode not in ("spectral", "blocked"):
+        raise ValueError(f"MAGPHASE_HPF_MODE={mode!r}: 'spectral' or "
+                         "'blocked'")
+    return mode
 
 
 # batch-axis bucketing under the frame-element budget (parallel/mesh.py of
@@ -68,9 +72,10 @@ def _fused_batch_impl(feats, voi, pm, shifts, nfrms, ns_len, keys,
                       q_scale=None, q_zp=None, *,
                       fs, fft_len, alpha, alpha_phase, mag_dim, phase_dim,
                       mag_dim_ph, b_voi_ap_win, per_phase_type, out_len_max,
-                      b_out_hpf, pf_type, tables):
-    """[post-filter] -> mel-unwarp -> synthesis core [+ spectral 40 Hz
-    high-pass] for the whole batch (magphase.py:825-997 + 3259-3268).
+                      b_out_hpf, hpf_mode, pf_type, tables):
+    """[post-filter] -> mel-unwarp -> synthesis core [+ the 40 Hz output
+    high-pass in ``hpf_mode``] for the whole batch (magphase.py:825-997 +
+    3259-3268).
     feats (B, F, mag+2*phase) float16, or uint8 codes with their (B, D)
     float32 ``q_scale`` and ``q_zp`` (the int8 transport, quantise_feats);
     keys (B, 2) uint32 values.  All compute is float32."""
@@ -98,7 +103,7 @@ def _fused_batch_impl(feats, voi, pm, shifts, nfrms, ns_len, keys,
         m_imag.reshape(B, F, h), voi, pm, shifts, nfrms, ns_len, keys,
         fs=fs, fft_len=fft_len, alpha=alpha, b_voi_ap_win=b_voi_ap_win,
         per_phase_type=per_phase_type, out_len_max=out_len_max,
-        out_hpf="spectral" if b_out_hpf else None, tables=tables)
+        out_hpf=hpf_mode if b_out_hpf else None, tables=tables)
 
 
 def quantise_feats(feats16: np.ndarray, nfrms: np.ndarray):
@@ -241,7 +246,7 @@ def _group_tables(cfg: dict, device) -> SynthesisTables:
         fs=cfg["fs"], fft_len=cfg["fft_len"], alpha=cfg["alpha"],
         alpha_phase=cfg["alpha_phase"], mag_dim=cfg["mag_dim"],
         mag_dim_ph=cfg["mag_dim_ph"], pf_type=cfg["pf_type"],
-        out_hpf="spectral" if cfg["b_out_hpf"] else None).to(device)
+        out_hpf=cfg["hpf_mode"] if cfg["b_out_hpf"] else None).to(device)
 
 
 def _execute_synthesis_group(dev: dict, cfg: dict, tables, *,
@@ -269,7 +274,7 @@ def _check_synthesis_options(transport, mesh, pf_type,
         raise ValueError(f"pf_type={pf_type!r}: expected one of {PF_TYPES}")
     if per_phase_type not in PER_PHASE_TYPES:
         raise ValueError(per_phase_type)
-    _check_hpf_mode()
+    hpf_mode()
 
 
 def _synthesis_config(utts, fs, fft_syn, alpha, alpha_phase, b_voi_ap_win,
@@ -282,7 +287,7 @@ def _synthesis_config(utts, fs, fft_syn, alpha, alpha_phase, b_voi_ap_win,
     return dict(fs=fs, fft_len=fft_syn, alpha=alpha, alpha_phase=alpha_phase,
                 mag_dim=mag_dim, phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
                 b_voi_ap_win=b_voi_ap_win, per_phase_type=per_phase_type,
-                b_out_hpf=b_out_hpf, pf_type=pf_type)
+                b_out_hpf=b_out_hpf, hpf_mode=hpf_mode(), pf_type=pf_type)
 
 
 def synthesis_from_compressed_batch(utts, fs: int,
@@ -323,8 +328,10 @@ def synthesis_from_compressed_batch(utts, fs: int,
     fixes the synthesis FFT at the 50 Hz worst case, independent of batch
     content.
 
-    ``MAGPHASE_HPF_MODE=spectral`` (the default) and ``mesh=None`` only;
-    anything else raises ValueError.
+    ``MAGPHASE_HPF_MODE``: 'spectral' (the default) or 'blocked' (hpf_mode);
+    with 'blocked', ``det_fft_syn`` and per-utterance keys, every output
+    sample of an utterance is independent of the batch it is in.
+    ``mesh=None`` only.  Anything else raises ValueError.
     """
     if pcm16 and block_result:
         raise ValueError("pcm16=True is a device transfer encoding; use "

@@ -26,10 +26,11 @@ import torch
 from ..config import define_alpha, define_crossfade_params, define_fft_len
 from ..core import fbank, framing, melcep
 from ..core.filters import (butter_highpass_coeffs, butter_highpass_sos,
-                            sos_freq_response_rfft)
+                            sos_freq_response_rfft, sosfilt)
 from ..core.interp import as_f32, extend_nearest_coeffs
 from ..core.spectral import (build_mel_curve, build_min_phase_from_mag_spec,
-                             crossfade_down_win_np, db, protected_log)
+                             crossfade_down_win_np, db, protected_log,
+                             rows_fft)
 from ..core.windows import HANNING, VOI_NOISE, asym_win_value_select
 from ..io import wav as wav_io
 from ..io.featfile import read_binfile, write_featfile
@@ -209,6 +210,15 @@ def analysis_for_acoustic_modelling(wav_file: str, out_dir: str,
 # ---------------------------------------------------------------------------
 # synthesis side
 
+OUT_HPF_MODES = (None, "spectral", "blocked")
+
+
+def check_out_hpf(out_hpf) -> None:
+    if out_hpf not in OUT_HPF_MODES:
+        raise ValueError(f"out_hpf={out_hpf!r}: expected one of "
+                         f"{OUT_HPF_MODES}")
+
+
 class SynthesisTables(torch.nn.Module):
     """The per-configuration constant tables of synthesis, as buffers that
     ``.to(device)`` moves: mel-unwarp cosine matrices, post-filter averaging
@@ -247,8 +257,7 @@ class SynthesisTables(torch.nn.Module):
         buf("line_voi", db(build_mel_curve(0.6, h, amp=2.0), b_inv=True))
         # fftshift after the inverse FFT as a (-1)^k modulation
         buf("alt", 1.0 - 2.0 * (torch.arange(h) % 2).to(f32))
-        if out_hpf not in (None, "spectral"):
-            raise ValueError(f"out_hpf={out_hpf!r}: only 'spectral' is ported")
+        check_out_hpf(out_hpf)
         hpf = (sos_freq_response_rfft(butter_highpass_sos(4, 40.0, fs),
                                       fft_len)
                if out_hpf == "spectral" else (None, None))
@@ -388,41 +397,6 @@ def _noise_frames_direct(keys, pm, nfrms, ns_len, fft_len: int,
     return torch.where(in_frame, vals * win.to(dtype), 0.0)
 
 
-# cuFFT picks its algorithm by the batch's row count, and below some count
-# a row's transform differs in its last bits with the count (seen on the
-# H100 for 2048-point transforms at 1,024-3,072 rows, not at 4,096-8,192):
-# the synthesis FFTs run on the card in calls of exactly _FFT_ROWS rows, so
-# an utterance's samples do not depend on the batch around it
-_FFT_ROWS = 4096
-
-
-def _rows_fft(fn, x: torch.Tensor, **kw) -> torch.Tensor:
-    """``fn`` (torch.fft.rfft or irfft) over the last axis of ``x``; on the
-    card in calls of _FFT_ROWS rows (_fft_in_calls)."""
-    if x.device.type != "cuda":
-        return fn(x, **kw)
-    y = _fft_in_calls(fn, x.reshape(-1, x.shape[-1]), _FFT_ROWS, **kw)
-    return y.reshape(*x.shape[:-1], y.shape[-1])
-
-
-def _fft_in_calls(fn, rows: torch.Tensor, per_call: int,
-                  **kw) -> torch.Tensor:
-    """``fn`` over the (n, m) ``rows`` in calls of exactly ``per_call``
-    rows, the last one padded with zero rows."""
-    n = rows.shape[0]
-    out = None
-    for i in range(0, n, per_call):
-        c = rows[i:i + per_call]
-        if c.shape[0] < per_call:
-            c = torch.cat([c, c.new_zeros(per_call - c.shape[0],
-                                          c.shape[1])])
-        y = fn(c, **kw)
-        if out is None:
-            out = y.new_empty(n, y.shape[-1])
-        out[i:i + per_call] = y[:n - i]
-    return out
-
-
 # the noise gain's fixed point: terms in steps of 2^-20, each below 2^14 (a
 # finite float32 has |log| < 104, so log^2 < 1.1e4); up to 2^26 terms of an
 # utterance sum below 2^60 in int64
@@ -447,10 +421,14 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
     signature, changes nothing: the noise is drawn directly in frame space
     as a function of the absolute sample index, so no buffer exists.
 
-    ``out_hpf='spectral'`` folds the 40 Hz output high-pass into the frame
-    spectra as a per-bin complex gain."""
+    ``out_hpf``: the 40 Hz output high-pass, 'spectral' folded into the
+    frame spectra as a per-bin complex gain, or 'blocked' as sosfilt's
+    fixed-section FFT convolution of each utterance's overlap-added buffer
+    (JAX parallel/batch.py:84-96; output sample i depends only on the
+    buffer's samples up to i, so not on the batch's padded length)."""
     if per_phase_type not in PER_PHASE_TYPES:
         raise ValueError(per_phase_type)
+    check_out_hpf(out_hpf)
     B, F = pm.shape
     h = fft_len // 2 + 1
     dtype = m_mag.dtype
@@ -469,7 +447,7 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
     m_frm_ns = _noise_frames_direct(
         keys, pm, nfrms, ns_len, fft_len,
         VOI_NOISE if b_voi_ap_win else HANNING, HANNING, voi, dtype)
-    m_ns_cmplx = _rows_fft(torch.fft.rfft, m_frm_ns)
+    m_ns_cmplx = rows_fft(torch.fft.rfft, m_frm_ns)
     del m_frm_ns
 
     # --- noise gain normalisation (899-906): sqrt(exp(mean(log|NS|_mid^2)))
@@ -532,16 +510,17 @@ def synthesis_core_batch(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,
         s_re, s_im = m_syn.real, m_syn.imag
         hre, him = tables.hpf_re, tables.hpf_im
         m_syn = torch.complex(s_re * hre - s_im * him, s_re * him + s_im * hre)
-    elif out_hpf is not None:
-        raise ValueError(f"out_hpf={out_hpf!r}: only 'spectral' is ported")
 
     # --- to time domain (963-965), fftshift folded in as (-1)^k
-    m_frm = _rows_fft(torch.fft.irfft, m_syn * tables.alt, n=fft_len)
+    m_frm = rows_fft(torch.fft.irfft, m_syn * tables.alt, n=fft_len)
     del m_syn
 
     # --- anti-ringing window (968-973) + PSOLA overlap-add (976)
     m_frm = framing.apply_anti_ringing(m_frm, shifts, nfrms)
-    return framing.ola_centered_batch(m_frm, pm, nfrms, out_len_max)
+    bufs = framing.ola_centered_batch(m_frm, pm, nfrms, out_len_max)
+    if out_hpf == "blocked":
+        bufs = sosfilt(butter_highpass_sos(4, 40.0, fs), bufs, mode="blocked")
+    return bufs
 
 
 def synthesis_core(m_mag, m_real, m_imag, v_voi, pm, shifts, nfrms,

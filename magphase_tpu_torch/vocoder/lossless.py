@@ -54,6 +54,26 @@ def analysis_core_batch(sig, pm, nfrms, n_sig, voi, *, fft_len: int,
     return m_mag, m_real, m_imag, v_f0, v_shift
 
 
+def analysis_type2_core_batch(sig, pm, nfrms, n_sig, voi, *, fft_len: int):
+    """analysis_with_del_comp_from_pm_type2 (magphase.py:182-260) batched:
+    the lossless analysis (K1 + rfft + features) plus a per-frame gain,
+    the voiced frames' max |first half of the delay-compensated frame|
+    (244-246) and the unvoiced frames' std over the windowed frame
+    (247-249, from sums over the padded frame: its zeros add nothing).
+    Returns (mag, real, imag, shift, gain) with (B, F, ...) shapes."""
+    frames, L, R, valid = framing.pitch_sync_frames_batch(
+        sig, pm, nfrms, n_sig, fft_len, win_family=HANNING)
+    h = fft_len // 2 + 1
+    m_mag, m_real, m_imag = lossless_features(torch.fft.rfft(frames))
+    gain_voi = torch.amax(torch.abs(frames[..., :h]), dim=-1)
+    n = torch.clamp(L + R + 1, min=1).to(frames.dtype)
+    s1 = torch.sum(frames, dim=-1)
+    s2 = torch.sum(frames ** 2, dim=-1)
+    var = torch.clamp(s2 / n - (s1 / n) ** 2, min=0.0)
+    v_gain = torch.where(voi > 0, gain_voi, torch.sqrt(var))
+    return m_mag, m_real, m_imag, L, torch.where(valid, v_gain, 0.0)
+
+
 def synthesis_spectrum(m_mag, m_real, m_imag) -> torch.Tensor:
     """The complex half spectrum that synthesis inverts: magnitude times
     the normalised phasor, imag zeroed at DC and Nyquist, and the fftshift
@@ -166,6 +186,38 @@ def analysis_with_del_comp_from_pm(v_in_sig: np.ndarray, fs: int,
         np.float64)
     return (mag.astype(np.float64), real.astype(np.float64),
             imag.astype(np.float64), v_f0, shift)
+
+
+def analysis_with_del_comp_from_pm_type2(v_in_sig: np.ndarray, fs: int,
+                                         v_pm_smpls: np.ndarray,
+                                         v_voi: np.ndarray,
+                                         fft_len: int | None = None, *,
+                                         device="cuda"):
+    """Type-2 lossless analysis of one utterance from its pitch marks
+    (magphase.py:182-260, one window per two periods): the lossless
+    features plus a per-frame gain (analysis_type2_core_batch).
+    Returns (m_mag, m_real, m_imag, v_f0, v_shift, v_gain) as numpy."""
+    cfg = MagPhaseConfig(fs=fs) if fft_len is None else \
+        MagPhaseConfig(fs=fs, fft_len=fft_len)
+    fft_len = cfg.fft_len
+    pm = np.asarray(np.round(v_pm_smpls), dtype=np.int64)
+    nfrms = pm.shape[0]
+    n_sig = v_in_sig.shape[0]
+    F = bucket(nfrms, FRM_STEP)
+    S = bucket_signal(n_sig)
+    sig_d, pm_d, voi_d, nfrms_d, nsig_d = _rows(
+        torch.device(device), pad_to(np.asarray(v_in_sig, np.float32), S),
+        pad_to(pm.astype(np.int32), F),
+        pad_to(np.asarray(v_voi, np.float32), F),
+        np.int32(nfrms), np.int32(n_sig))
+    mag, real, imag, shift, gain = (
+        x[0, :nfrms].cpu().numpy() for x in analysis_type2_core_batch(
+            sig_d, pm_d, nfrms_d, nsig_d, voi_d, fft_len=fft_len))
+    shift = shift.astype(np.int64)
+    v_f0 = np.asarray(v_voi, np.float64)[:nfrms] * fs / shift.astype(
+        np.float64)
+    return (mag.astype(np.float64), real.astype(np.float64),
+            imag.astype(np.float64), v_f0, shift, gain.astype(np.float64))
 
 
 def analysis_lossless(wav_file: str, fft_len: int | None = None,

@@ -1,5 +1,6 @@
 """Post-filters for the compressed (mel log-mag) feature stream (port of
-magphase_tpu/vocoder/postfilter.py: post_filter and post_filter_merlin).
+magphase_tpu/vocoder/postfilter.py: post_filter, its dev and oldest
+revisions, and post_filter_merlin).
 
 Both act on (rows, mag_dim) float32 tensors on any device.
 """
@@ -65,6 +66,23 @@ def post_filter_tables(fs: int, mag_dim: int):
     return _avg_matrix_np(mag_dim, az, an).T, np.linspace(bz, bn, mag_dim)
 
 
+def _avg_and_tilt(m: torch.Tensor, az: int, an: int, v_tilt: np.ndarray):
+    """(moving average, boost tilt) of post_filter's body as tensors on
+    m's device: A @ v as one matmul, the tilt per coefficient."""
+    a_t = torch.tensor(_avg_matrix_np(m.shape[-1], az, an).T, dtype=m.dtype,
+                       device=m.device)
+    return melcep.mm(m, a_t), torch.tensor(v_tilt, dtype=m.dtype,
+                                           device=m.device)
+
+
+def _pin_ends(m_enh: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The end coefficients pinned to their unfiltered values
+    (magphase.py:2372-2373)."""
+    m_enh[..., 0] = m[..., 0]
+    m_enh[..., -1] = m[..., -1]
+    return m_enh
+
+
 def post_filter(m_mag_mel_log: torch.Tensor, fs: int,
                 av_len_at_zero: int | None = None,
                 av_len_at_nyq: int | None = None,
@@ -89,11 +107,37 @@ def post_filter(m_mag_mel_log: torch.Tensor, fs: int,
                                device=m.device))
     a_t, v_tilt = tables
     m_ave = melcep.mm(m, a_t)
-    m_enh = (m - m_ave) * v_tilt + m_ave
-    # endpoints pinned to the unfiltered values (magphase.py:2372-2373)
-    m_enh[..., 0] = m[..., 0]
-    m_enh[..., -1] = m[..., -1]
-    return m_enh
+    return _pin_ends((m - m_ave) * v_tilt + m_ave, m)
+
+
+def post_filter_dev(m_mag_mel_log: torch.Tensor, fs: int,
+                    av_len_at_zero: int | None = None,
+                    av_len_at_nyq: int | None = None,
+                    boost_at_zero: float | None = None,
+                    boost_at_nyq: float | None = None):
+    """Dev copy of the MagPhase post-filter (magphase.py:2382-2468):
+    post_filter's defaults and body, and also the average-subtracted
+    residual (the reference's debug output, ``return m_mag_mel_log_enh,
+    m_mag_mel_log_norm``)."""
+    m = m_mag_mel_log
+    mag_dim = m.shape[-1]
+    az, an, bz, bn = _pf_defaults(fs, mag_dim, av_len_at_zero, av_len_at_nyq,
+                                  boost_at_zero, boost_at_nyq)
+    m_ave, v_tilt = _avg_and_tilt(m, az, an, np.linspace(bz, bn, mag_dim))
+    m_norm = m - m_ave
+    return _pin_ends(m_norm * v_tilt + m_ave, m), m_norm
+
+
+def post_filter_backup_old(m_mag_mel_log: torch.Tensor) -> torch.Tensor:
+    """Oldest post-filter revision (magphase.py:2254-2297): fixed 11 -> 3
+    bin average lengths (scaled by mag_dim/60) and a linspace(2, 6) boost
+    tilt, with no sample-rate keying."""
+    m = m_mag_mel_log
+    mag_dim = m.shape[-1]
+    az = int(np.round(11.0 * mag_dim / 60.0))
+    an = int(np.round(3.0 * mag_dim / 60.0))
+    m_ave, v_tilt = _avg_and_tilt(m, az, an, np.linspace(2.0, 6.0, mag_dim))
+    return _pin_ends((m - m_ave) * v_tilt + m_ave, m)
 
 
 def post_filter_merlin(m_mag_mel_log: torch.Tensor, fs: int,

@@ -274,10 +274,11 @@ def test_format_for_modelling_matches_jax():
 
 @pytest.mark.parametrize("bad", [
     dict(mesh=object()), dict(feat_dtype=np.int8),
-    dict(feat_dtype=np.float64), dict(env="clip30")])
+    dict(feat_dtype=np.float64), dict(env="clip")])
 def test_unported_analysis_options_raise(bad, monkeypatch):
     """A mesh, any output dtype but float16, float32 and uint8 (int8,
-    float64) and tracker whitening raise ValueError up front."""
+    float64) and a tracker whitening mode that names none of 'none',
+    'clipNN' and 'cube' raise ValueError up front."""
     env = bad.pop("env", None)
     if env is not None:
         monkeypatch.setenv("MAGPHASE_TRACKER_WHITEN", env)

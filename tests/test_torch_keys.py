@@ -14,8 +14,11 @@ import pytest
 
 import magphase_tpu
 import magphase_tpu.epochs
+import magphase_tpu.ops
+import magphase_tpu.vocoder
 import magphase_tpu_torch
 import magphase_tpu_torch.epochs
+import magphase_tpu_torch.ops
 from magphase_tpu.parallel import batch as jbatch
 from magphase_tpu_torch.parallel import batch as tbatch
 from magphase_tpu_torch.kernels import _build
@@ -78,6 +81,61 @@ def test_split_is_prefix_stable():
     whole = K.split(key, 300)
     for m in (1, 5, 64, 299):
         np.testing.assert_array_equal(K.split(key, m), whole[:m])
+
+
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((1,), 0.0, 1.0), ((7,), -1.0, 1.0), ((1001,), -1.0, 1.0),
+    ((5, 13), 0.0, 1.0), ((3, 4, 5), -2.5, 0.5), ((65537,), -1.0, 1.0)],
+    ids=str)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_matches_jax(seed, shape, lo, hi):
+    """uniform(key, shape, lo, hi) is jax.random.uniform(key, shape,
+    float32, lo, hi) bit for bit, for a root key and a split child, odd
+    sizes included."""
+    for key in (K.prng_key(seed), K.split(K.prng_key(seed), 3)[2]):
+        ref = np.asarray(jax.random.uniform(jax.numpy.asarray(key), shape,
+                                            minval=lo, maxval=hi))
+        got = K.uniform(key, shape, lo, hi)
+        assert got.dtype == np.float32 and got.shape == ref.shape
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      ref.view(np.uint32))
+
+
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((163840,), -1.0, 1.0), ((64, 4096), 0.0, 1.0), ((7,), -2.5, 0.5)],
+    ids=str)
+def test_uniform_tensor_is_uniform(shape, lo, hi):
+    """The torch form (the one the variants and Griffin-Lim draw on their
+    device) gives uniform's values bit for bit."""
+    for key in (K.prng_key(4), K.split(K.prng_key(9), 2)[1]):
+        got = K.uniform_tensor(key, shape, lo, hi).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      K.uniform(key, shape, lo, hi)
+                                      .view(np.uint32))
+
+
+@pytest.mark.cuda
+def test_cuda_uniform_tensor_is_uniform():
+    """The same draw on the card, bit for bit."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    key = K.split(K.prng_key(4), 3)[2]
+    got = K.uniform_tensor(key, (640, 4096), -1.0, 1.0,
+                           device="cuda").cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), K.uniform(
+        key, (640, 4096), -1.0, 1.0).view(np.uint32))
+
+
+def test_uniform_is_prefix_stable():
+    """A draw is a prefix of any longer draw from the same key (the
+    counter of element i is (0, i)), as JAX's partitionable threefry
+    gives: the variants draw at the JAX package's padded shapes."""
+    key = K.prng_key(8)
+    whole = K.uniform(key, (4096,), -1.0, 1.0)
+    for n in (1, 77, 4095):
+        np.testing.assert_array_equal(K.uniform(key, (n,), -1.0, 1.0),
+                                      whole[:n])
 
 
 def _assert_audio_close(got, ref):
@@ -177,13 +235,28 @@ def _public_names(module):
 @pytest.mark.parametrize("pair", [
     (magphase_tpu, magphase_tpu_torch),
     (magphase_tpu.epochs, magphase_tpu_torch.epochs),
-    (magphase_tpu.io, magphase_tpu_torch.io)], ids=["top", "epochs", "io"])
+    (magphase_tpu.io, magphase_tpu_torch.io),
+    (magphase_tpu.vocoder, magphase_tpu_torch.vocoder),
+    (magphase_tpu.ops, magphase_tpu_torch.ops)],
+    ids=["top", "epochs", "io", "vocoder", "ops"])
 def test_port_exports_hold_the_jax_exports(pair):
     jmod, tmod = pair
     want = _public_names(jmod)
     assert want <= set(tmod.__all__) | {"__version__"}
     for name in tmod.__all__:
-        assert callable(getattr(tmod, name)) or name.startswith("DEFAULT")
+        obj = getattr(tmod, name)
+        assert callable(obj) or inspect.ismodule(obj) or \
+            name.startswith("DEFAULT")
+
+
+def test_top_level_exports_the_vocoder():
+    """The package's top level exports every name of the JAX package's
+    vocoder/__init__.py:__all__, each the port's vocoder object."""
+    import magphase_tpu.vocoder as jvoc
+    for name in jvoc.__all__:
+        assert name in magphase_tpu_torch.__all__, name
+        assert getattr(magphase_tpu_torch, name) is getattr(
+            magphase_tpu_torch.vocoder, name)
 
 
 def test_get_pitch_marks_is_extract_epochs_times():
@@ -205,7 +278,8 @@ def test_import_builds_no_kernel():
     code = (
         "import sys\n"
         "import magphase_tpu_torch, magphase_tpu_torch.epochs\n"
-        "import magphase_tpu_torch.parallel\n"
+        "import magphase_tpu_torch.parallel, magphase_tpu_torch.ops\n"
+        "import magphase_tpu_torch.vocoder.variants\n"
         "import magphase_tpu_torch.cli, magphase_tpu_torch.serve\n"
         "from magphase_tpu_torch.io import native\n"
         "from magphase_tpu_torch.kernels import dft, framing, walk\n"

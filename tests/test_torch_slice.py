@@ -243,12 +243,12 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 @pytest.mark.parametrize("bad", [
     dict(transport="u8"), dict(mesh=object()),
     dict(pcm16=True), dict(pf_type="bogus"), dict(per_phase_type="bogus"),
-    dict(env="blocked"), dict(env="spectral ")])
+    dict(env="fir"), dict(env="spectral ")])
 def test_unported_options_raise(bad, monkeypatch):
     """A transport other than 'f16' and 'int8', a mesh, pcm16 with
     blocking results, unknown filter/phase types and any
-    MAGPHASE_HPF_MODE other than 'spectral' (a later port, or a typo)
-    raise ValueError up front."""
+    MAGPHASE_HPF_MODE other than 'spectral' and 'blocked' (a typo) raise
+    ValueError up front."""
     utts = _utts(2, 32, 20, 10, seed=7)
     kw = dict(fft_len=512, keys=_keys(2), device="cpu")
     env = bad.pop("env", None)

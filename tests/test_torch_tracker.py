@@ -206,8 +206,72 @@ def test_extract_epochs_matches_jax():
 
 @pytest.mark.parametrize("mode", ["clip30", "cube", "bogus"])
 def test_unported_whiten_modes_raise(mode, monkeypatch):
-    """MAGPHASE_TRACKER_WHITEN other than 'none' raises ValueError."""
+    """MAGPHASE_TRACKER_WHITEN: an unknown value ('bogus') raises
+    ValueError; the JAX package's modes 'clipNN' and 'cube' run and give
+    its marks and flags on the mixed stimulus, exactly (as
+    test_extract_epochs_matches_jax for 'none')."""
+    monkeypatch.setenv("MAGPHASE_TRACKER_WHITEN", mode)
+    sig = _stimuli()[1]
+    if mode == "bogus":
+        with pytest.raises(ValueError):
+            extract_epochs(sig, FS, device="cpu")
+    else:
+        pm, voi = extract_epochs(sig, FS, device="cpu")
+        rpm, rvoi = jt.extract_epochs(sig, FS)
+        np.testing.assert_array_equal(pm, rpm)
+        np.testing.assert_array_equal(voi, rvoi)
+    assert os.environ["MAGPHASE_TRACKER_WHITEN"] == mode
+
+
+@pytest.mark.parametrize("mode", ["clip30", "clip12.5", "cube"])
+def test_whitened_nccf_matches_jax(mode):
+    """The NCCF of each whitening mode from the JAX stage's own input, at
+    the bound and reason of test_nccf_matches_jax (1e-5), on every frame
+    whose segment does not straddle a voicing boundary.  Across a
+    boundary, clipping or cubing leaves the segment almost all zeros, the
+    normalising energy sits near its 1e-12 floor and magnifies round-off
+    without bound (measured up to 0.06, on 7 frames): those frames lie
+    within one segment (27.5 ms) and one frame step of the boundaries of
+    the mixed stimulus (stimulus 1), and only they may exceed it."""
+    j = _jax_stages()
+    ref = jax.vmap(functools.partial(
+        jt._nccf, n_frames_max=j["Tmax"], fs_a=j["fs_a"], whiten=mode))(
+        jnp.asarray(j["xa"]), jnp.asarray(j["n_frames"]))[0]
+    nccf, valid = tt._nccf(_t(j["xa"]), _t(j["n_frames"]),
+                           n_frames_max=j["Tmax"], fs_a=j["fs_a"],
+                           whiten=mode)
+    err = np.abs(nccf.numpy() - np.asarray(ref)).max(axis=-1)
+    t0 = np.arange(err.shape[1]) * jt.FRAME_STEP_S
+    bounds = np.cumsum([d for d, *_ in SYNTH_CASES["mixed"]])
+    near = np.zeros(err.shape, bool)
+    near[1] = np.any((bounds[None, :] >= t0[:, None] - jt.FRAME_STEP_S)
+                     & (bounds[None, :] <= t0[:, None] + jt.CORR_WIN_S
+                        + 1.0 / jt.F0_MIN + jt.FRAME_STEP_S), axis=1)
+    far = valid.numpy() & ~near
+    assert far.sum() > 300
+    assert err[far].max() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["clip", "clipx", "Cube", "none "])
+def test_bad_whiten_values_raise(mode, monkeypatch):
+    """Values that name no mode raise before any work."""
     monkeypatch.setenv("MAGPHASE_TRACKER_WHITEN", mode)
     with pytest.raises(ValueError):
-        extract_epochs(_stimuli()[0], FS, device="cpu")
-    assert os.environ["MAGPHASE_TRACKER_WHITEN"] == mode
+        tt.nccf_whiten_mode()
+
+
+def test_track_and_place_one_matches_jax():
+    """One utterance through the device tracker and walk (K4 as a batch of
+    one) against the JAX package's per-utterance form (its XLA walk):
+    marks, flags and the mark count equal."""
+    j = _jax_stages()
+    kw = dict(fs=FS, n_frames_max=j["Tmax"], m_max=j["m_max"])
+    b = 1
+    args = (j["sig"][b], j["n_sigs"][b], j["n_frames"][b])
+    ref = jax.jit(functools.partial(jpd.track_and_place_one, **kw))(
+        *(jnp.asarray(a) for a in args))
+    got = tpd.track_and_place_one(_t(args[0]), int(args[1]), int(args[2]),
+                                  **kw)
+    assert int(ref[2]) > 20
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))

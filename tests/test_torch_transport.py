@@ -27,6 +27,7 @@ from magphase_tpu.utils import pipeline as jpipeline
 from magphase_tpu.utils.tracker_eval import make_stimulus
 from magphase_tpu_torch import cli as tcli
 from magphase_tpu_torch import serve as tserve
+from magphase_tpu_torch.core import spectral as tspectral
 from magphase_tpu_torch.io import labels as tlabels
 from magphase_tpu_torch.io import native as tnative
 from magphase_tpu_torch.io import scp as tscp
@@ -476,13 +477,13 @@ def test_synthesis_does_not_depend_on_the_batch_on_the_card(cuda_device):
 
 @pytest.mark.parametrize("n,per_call", [(5019, 100), (100, 100), (37, 64)])
 def test_fft_in_calls_reassembles_the_rows(n, per_call):
-    """The synthesis FFTs' fixed-size calls (vocoder/compressed.py, taken
+    """The synthesis FFTs' fixed-size calls (core/spectral.py, taken
     on the card): padded, split and put back in order, bitwise the one
     call's rows (the CPU's FFT does not depend on the batch)."""
     x = torch.from_numpy(np.random.default_rng(n).standard_normal(
         (n, 64)).astype(np.float32))
     spec = torch.fft.rfft(x)
-    got = tcompressed._fft_in_calls(torch.fft.rfft, x, per_call)
+    got = tspectral.fft_in_calls(torch.fft.rfft, x, per_call)
     assert torch.equal(got, spec)
-    back = tcompressed._fft_in_calls(torch.fft.irfft, spec, per_call, n=64)
+    back = tspectral.fft_in_calls(torch.fft.irfft, spec, per_call, n=64)
     assert torch.equal(back, torch.fft.irfft(spec, n=64))
