@@ -2380,6 +2380,384 @@ def run_variants_path(dev, seed: int, feats, keys_all) -> tuple:
     return counts, kchecks
 
 
+# ---------------------------------------------------------------------------
+# data parallelism, multi-process corpus runs and the serving example
+
+MESH_REQUEST = 128          # serving utterances through each mesh
+MESH_ANALYSIS = 192         # analysis and copy-synthesis utterances
+MESH_LOSSLESS = 32          # analysis_lossless_batch from given epochs
+MESH_TIMING_RUNS = 3
+# analysis over a mesh against the unsplit call, where not bitwise: the
+# card-against-CPU bound of the mel streams (TOL_ANALYSIS_STREAMS), since
+# what could differ is the same kind of float32 reordering (a matmul whose
+# algorithm follows the row count); the marks must be equal
+MP_UTTS = 16
+MP_SECONDS = 2.0
+# the serving example's PCM16 on the card against the CPU: the float32
+# waveforms agree within TOL_CUDA_VS_CPU of the peak (0.64 codes after the
+# 0.98 peak normalisation), so rounding moves a sample by one code at most
+TOL_EXAMPLE_CODES = 1
+
+
+def _timed(fn, mesh):
+    """(result, wall ms, peak device memory in GiB summed over the mesh's
+    cards) of one request, every card of the mesh synced."""
+    from magphase_tpu_torch.parallel.mesh import DataMesh, synchronize
+    mesh = mesh or DataMesh(["cuda"])
+    cards = set(mesh.devices)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    synchronize(mesh)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(mesh)
+    return out, (time.perf_counter() - t0) * 1e3, sum(
+        torch.cuda.max_memory_allocated(d) for d in cards) / 2 ** 30
+
+
+def _max_diff(a, b) -> float:
+    return max(float(np.abs(np.asarray(x, np.float64)
+                            - np.asarray(y, np.float64)).max())
+               for x, y in zip(a, b))
+
+
+def run_mesh_path(dev, seed: int, feats, keys_all, a_sigs, a_marks,
+                  a_vois) -> tuple:
+    """Path 8, data parallelism (parallel/mesh.py): data_mesh() over the
+    visible cards, a logical mesh of 2 shards on one card, and one of 3
+    shards with 2 utterances (the mesh size does not divide the bucket of
+    8).  Each against the same call with mesh=None: the 128-utterance
+    serving request (byte-identical), synthesis_batches_pipelined (PCM16,
+    byte-identical), the 192-utterance analysis request (marks equal,
+    streams bitwise or within TOL_ANALYSIS_STREAMS), the 192-utterance
+    copy-synthesis (each output p99 < 2^-15 of its input) and
+    analysis_lossless_batch from given epochs.  K1, K2 and K4 held to
+    their plain versions on every recorded call of the split runs; then
+    wall ms and peak memory per request, unrecorded, none and 2 shards in
+    turns.  Returns the launch counts (the checked mesh runs') and the
+    kernel checks."""
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import walk as K4
+    from magphase_tpu_torch.parallel import analysis_batch as ab
+    from magphase_tpu_torch.parallel import batch
+    from magphase_tpu_torch.parallel import copy_synthesis as cs
+    from magphase_tpu_torch.parallel.mesh import DataMesh, data_mesh
+
+    req = [a_sigs[i % len(a_sigs)] for i in range(MESH_ANALYSIS)]
+    eps = [(np.asarray(m) / FS, v) for m, v in zip(a_marks, a_vois)]
+    half = MESH_REQUEST // 2
+    batches = [(feats[:half], keys_all[:half]),
+               (feats[half:MESH_REQUEST], keys_all[half:MESH_REQUEST])]
+
+    def requests(mesh, n_serve=MESH_REQUEST, n_req=MESH_ANALYSIS):
+        kw = dict(mesh=mesh) if mesh is not None else dict(device=dev)
+        return {
+            "serve": lambda: batch.synthesis_from_compressed_batch(
+                feats[:n_serve], FS, pf_type="magphase",
+                keys=keys_all[:n_serve], **kw),
+            "pipelined": lambda: [r for g in batch.synthesis_batches_pipelined(
+                batches, FS, pf_type="magphase", pcm16=True,
+                consume=lambda rows, host: [x.copy() for x in rows], **kw)
+                for r in g],
+            "analysis": lambda: ab.analysis_compressed_batch(
+                req[:n_req], FS, **kw),
+            "copy": lambda: cs.copy_synthesis_batch(req[:n_req], FS, **kw),
+            "lossless": lambda: ab.analysis_lossless_batch(
+                a_sigs[:MESH_LOSSLESS], FS, epochs=eps[:MESH_LOSSLESS],
+                **kw),
+        }
+
+    def compare(name, got, ref, what):
+        if name in ("serve", "pipelined"):
+            diff = [i for i, (a, b) in enumerate(zip(got, ref))
+                    if not np.array_equal(a, b)]
+            if diff or len(got) != len(ref):
+                raise AssertionError(f"{what} {name}: {len(diff)} of "
+                                     f"{len(ref)} outputs differ from "
+                                     "mesh=None")
+            return "byte-identical"
+        if name == "copy":
+            _p99_vs_input(got, req[:len(got)], f"{what} copy-synthesis")
+            return f"max |mesh - none| {_max_diff(got, ref):.3g}"
+        if name == "analysis":
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if not np.array_equal(g[4], r[4]):
+                    raise AssertionError(f"{what} analysis utt {i}: marks "
+                                         "differ from mesh=None")
+            errs = [max(_max_diff([g[k] for g in got], [r[k] for r in ref]),
+                        0.0) for k in range(4)]
+            if not max(errs[:3]) <= TOL_ANALYSIS_STREAMS:
+                raise AssertionError(f"{what} analysis streams "
+                                     f"{errs} > {TOL_ANALYSIS_STREAMS}")
+            bitwise = all(np.array_equal(g[k], r[k]) for g, r in
+                          zip(got, ref) for k in range(4))
+            return (f"marks equal, streams "
+                    f"{'bitwise' if bitwise else 'max |diff| %s' % errs}")
+        errs = [_max_diff([g[k] for g in got], [r[k] for r in ref])
+                for k in range(5)]
+        if errs[3] != 0 or errs[4] != 0:
+            raise AssertionError(f"{what} lossless: f0/shift differ")
+        peak = max(float(np.abs(r[0]).max()) for r in ref)
+        if not errs[0] <= TOL_LOSSLESS_MAG_REL * peak:
+            raise AssertionError(f"{what} lossless magnitudes {errs[0]:.3g}")
+        bitwise = all(np.array_equal(g[k], r[k]) for g, r in
+                      zip(got, ref) for k in range(3))
+        return "bitwise" if bitwise else f"max |diff| {errs[:3]}"
+
+    visible = data_mesh()
+    logical2 = DataMesh([dev, dev])
+    logical3 = DataMesh([dev] * 3)
+    none = {name: fn() for name, fn in requests(None).items()}
+    none3 = {n: f() for n, f in requests(None, 2, 2).items()
+             if n in ("serve", "analysis", "copy")}
+
+    K.reset_launch_counts()
+    K4.reset_launch_counts()
+    checks = {}
+    for mesh, label, rec_it in ((visible, f"data_mesh() x{visible.size}",
+                                 False),
+                                (logical2, "2 logical shards", True)):
+        for name, fn in requests(mesh).items():
+            if rec_it:
+                with recording((K, "frames"), (K, "ola"), (K4, "walk")) as rc:
+                    got = fn()
+                for k, r in check_path_kernels(rc, f"mesh {name}").items():
+                    c = checks.setdefault(k, dict(calls=0, max_abs_err=0.0))
+                    c["calls"] += r["calls"]
+                    c["max_abs_err"] = max(c["max_abs_err"],
+                                           r["max_abs_err"])
+                del rc
+            else:
+                got = fn()
+            log(f"[mesh] {label} {name}: "
+                f"{compare(name, got, none[name], label)}")
+    for name, fn in requests(logical3, 2, 2).items():
+        if name in none3:
+            log(f"[mesh] 3 shards, 2 utts {name}: "
+                f"{compare(name, fn(), none3[name], '3 shards, 2 utts')}")
+    counts_mesh = {**K.launch_counts(), **K4.launch_counts()}
+
+    # wall and peak memory of each request, unrecorded, in turns
+    for name in requests(None):
+        walls = {"none": [], "2 shards": []}
+        mem = {}
+        for _ in range(MESH_TIMING_RUNS):
+            for key, mesh in (("none", None), ("2 shards", logical2)):
+                _, ms, mem[key] = _timed(requests(mesh)[name], mesh)
+                walls[key].append(ms)
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        log(f"[mesh] {name}, {MESH_TIMING_RUNS} runs each in turns: median "
+            f"wall none {med['none']:.1f} ms (min {min(walls['none']):.1f}, "
+            f"max {max(walls['none']):.1f}), 2 logical shards "
+            f"{med['2 shards']:.1f} ms (min {min(walls['2 shards']):.1f}, max "
+            f"{max(walls['2 shards']):.1f}), {med['2 shards'] / med['none']:.3f}"
+            f"x; peak none {mem['none']:.3f} GiB, 2 shards "
+            f"{mem['2 shards']:.3f} GiB")
+
+    counts = counts_mesh
+    log(f"[mesh] launches during the mesh runs: {counts}; kernels held to "
+        f"plain on the split runs' calls: {checks}")
+    for name in ("frames", "ola", "walk"):
+        if counts[name] <= 0 or checks.get(name, {}).get("calls", 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "mesh path")
+    return counts, checks
+
+
+_MP_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from magphase_tpu_torch import cli
+from magphase_tpu_torch.kernels import framing as K
+from magphase_tpu_torch.kernels import walk as K4
+from magphase_tpu_torch.parallel import mesh
+rcs = [cli.main(json.loads(a)) for a in sys.argv[3:]]
+json.dump(dict(rcs=rcs, rank=mesh.rank(), size=mesh.world_size(),
+               counts={**K.launch_counts(), **K4.launch_counts()}),
+          open(sys.argv[2], "w"))
+"""
+
+
+def run_multiproc_path(dev, seed: int) -> dict:
+    """Path 9, a multi-process corpus run: MP_UTTS witness wavs of
+    MP_SECONDS s; `cli extract` then `cli generate` in this process, then
+    in two worker processes that meet in a gloo group (the JAX CLI's
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) and both
+    run on this card.  Their per-process manifests must be a disjoint cover
+    and the merged feature and wav trees byte-identical to the one
+    process's.  Returns the workers' launch counts."""
+    import socket
+    import tempfile
+
+    from magphase_tpu_torch import cli
+    from magphase_tpu_torch.io import wav as wav_io
+
+    rng = np.random.default_rng(seed + 3000)
+    sigs = make_witness_signals(rng, MP_UTTS, MP_SECONDS)[0]
+    toks = [f"m{i:02d}" for i in range(MP_UTTS)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as tmp:
+        def d(*p):
+            return os.path.join(tmp, *p)
+
+        os.makedirs(d("wavs"))
+        for t, x in zip(toks, sigs):
+            wav_io.write_wav(d("wavs", t + ".wav"), x, FS)
+        with open(d("ids.scp"), "w") as f:
+            f.write("\n".join(toks) + "\n")
+
+        def argv(out):
+            return (["extract", "--scp", d("ids.scp"), "--wav-dir",
+                     d("wavs"), "--out-dir", d(out, "feats"),
+                     "--batch-size", "4"],
+                    ["generate", "--scp", d("ids.scp"), "--feats-dir",
+                     d(out, "feats"), "--out-dir", d(out, "wavs"),
+                     "--batch-size", "4"])
+
+        t0 = time.perf_counter()
+        for a in argv("one"):
+            if cli.main(a) != 0:
+                raise AssertionError(f"cli {a[0]} in one process failed")
+        t_one = time.perf_counter() - t0
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK",
+                            "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                            "MASTER_PORT")}
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for r in range(2):
+                e = dict(env, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                         JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r))
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _MP_WORKER, root,
+                     d(f"worker{r}.json"),
+                     *(json.dumps(a) for a in argv("two"))],
+                    env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            for r, p in enumerate(procs):
+                _, err = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise AssertionError(f"multiproc worker {r}: rc "
+                                         f"{p.returncode}\n{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_two = time.perf_counter() - t0
+        res = [json.load(open(d(f"worker{r}.json"))) for r in range(2)]
+        if [(x["rank"], x["size"], x["rcs"]) for x in res] != [
+                (0, 2, [0, 0]), (1, 2, [0, 0])]:
+            raise AssertionError(f"multiproc workers: {res}")
+        for sub in ("feats", "wavs"):
+            shards = [set(json.load(open(d("two", sub,
+                                           f".magphase_manifest.p{r}.json")))
+                          ["done"]) for r in range(2)]
+            if shards[0] & shards[1] or shards[0] | shards[1] != set(toks):
+                raise AssertionError(f"multiproc {sub}: the manifests are "
+                                     "no disjoint cover")
+            one = {f: open(d("one", sub, f), "rb").read()
+                   for f in os.listdir(d("one", sub))
+                   if not f.startswith(".")}
+            two = {f: open(d("two", sub, f), "rb").read()
+                   for f in os.listdir(d("two", sub))
+                   if not f.startswith(".")}
+            if one.keys() != two.keys() or any(one[f] != two[f]
+                                               for f in one):
+                raise AssertionError(f"multiproc {sub}: the merged tree "
+                                     "differs from one process's")
+        counts = {k: sum(x["counts"][k] for x in res)
+                  for k in res[0]["counts"]}
+        log(f"[multiproc] {MP_UTTS} wavs of {MP_SECONDS} s, extract + "
+            f"generate: one process {t_one:.2f} s (in this process, kernels "
+            f"built), two processes {t_two:.2f} s (each from its start); "
+            f"manifests {[len(s) for s in shards]} a disjoint cover, merged "
+            f"feature and wav trees byte-identical; worker launches {counts}")
+        for name in ("frames", "ola", "walk"):
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the "
+                                     "multi-process workers")
+    return counts
+
+
+def run_example_path(dev, seed: int) -> tuple:
+    """Path 10, the serving example
+    (magphase_tpu_torch/examples/serving_on_device.py): tts_step at B=8,
+    F=256 on the card (acoustic MLP -> unwarp -> synthesis (K2) -> device
+    PCM16), K2 held to its plain version on its own calls, the PCM16
+    against the CPU's within TOL_EXAMPLE_CODES; then the port's tracker
+    (extract_epochs) on utils/tracker_eval.make_stimulus at the clean
+    thresholds of tests/test_tracker_groundtruth.py.  Returns the launch
+    counts and the K2 check."""
+    from magphase_tpu_torch.epochs import extract_epochs
+    from magphase_tpu_torch.examples import serving_on_device as ex
+    from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.utils.keys import prng_key, split
+    from magphase_tpu_torch.utils.tracker_eval import (make_stimulus,
+                                                       tracker_metrics)
+
+    model = ex.init_acoustic_model(seed)
+    ling = torch.randn(ex.B, ex.F, ex.LING_DIM,
+                       generator=torch.Generator().manual_seed(seed + 1))
+    keys = torch.from_numpy(split(prng_key(seed + 2), ex.B).astype(np.int64))
+    K.reset_launch_counts()
+    tab = ex.synthesis_tables(dev)
+    model_d = model.to(dev)
+    with recording((K, "ola")) as rc:
+        (pcm, lens), ms, mem = _timed(lambda: ex.tts_step(
+            model_d, ling.to(dev), keys.to(dev), tab), None)
+    counts = K.launch_counts()
+    check = check_path_kernels(dict(rc, frames=[], walk=[]),
+                               "serving example")["ola"]
+    (_, _), warm, _ = _timed(lambda: ex.tts_step(
+        model_d, ling.to(dev), keys.to(dev), tab), None)
+    pcm, lens = pcm.cpu().numpy(), lens.cpu().numpy()
+    cpu, lens_c = (x.numpy() for x in ex.tts_step(
+        model.cpu(), ling, keys, ex.synthesis_tables("cpu")))
+    codes = int(np.abs(pcm.astype(np.int32) - cpu).max())
+    audio_s = float(lens.sum()) / ex.FS
+    if not (np.array_equal(lens, lens_c) and codes <= TOL_EXAMPLE_CODES):
+        raise AssertionError(f"serving example: card vs CPU {codes} codes, "
+                             f"lengths {lens} vs {lens_c}")
+    if counts["ola"] <= 0 or check["calls"] <= 0:
+        raise AssertionError("serving example: K2 was not launched")
+    log(f"[example] serving_on_device tts_step B={ex.B} F={ex.F} "
+        f"({audio_s:.1f} audio-s): {ms:.1f} ms first call, {warm:.1f} ms "
+        f"warm ({audio_s / warm * 1e3:.1f} audio-s/s), peak {mem:.3f} GiB; "
+        f"card vs CPU PCM16 within {codes} codes; K2 {check}; launches "
+        f"{counts}")
+
+    # the tracker's clean ground-truth gates (tests/test_tracker_
+    # groundtruth.py: SYNTH_CASES, seed 1)
+    cases = {"steady120": [(0.3, 120, 120)], "rise90_180": [(0.4, 90, 180)],
+             "fall300_150": [(0.4, 300, 150)], "high350": [(0.3, 350, 350)],
+             "low60": [(0.4, 60, 60)], "low_male_55_85": [(0.5, 55, 85)],
+             "mixed": [(0.2, None, None), (0.3, 140, 200),
+                       (0.15, None, None), (0.3, 220, 110),
+                       (0.1, None, None)]}
+    worst = dict(gpe=0.0, voi_miss=0.0, voi_fa=0.0, gci_hit=1.0,
+                 gci_jitter=0.0)
+    for name, segs in cases.items():
+        sig, gci, ivals, f0_at = make_stimulus(FS, segs, seed=1)
+        pm, voi = extract_epochs(sig, FS, device=dev)
+        m = tracker_metrics(pm, voi, gci, ivals, f0_at, len(sig) / FS)
+        if not (m["gpe"] < 0.01 and m["voi_miss"] < 0.02
+                and m["voi_fa"] < 0.03 and m["gci_hit"] > 0.93
+                and m["gci_jitter"] < 1.0e-3):
+            raise AssertionError(f"tracker ground truth {name}: {m}")
+        for k in worst:
+            worst[k] = (min if k == "gci_hit" else max)(worst[k], m[k])
+    log(f"[example] tracker on {len(cases)} make_stimulus cases on the "
+        f"card: worst {worst} (gates gpe < 0.01, voi_miss < 0.02, voi_fa < "
+        "0.03, gci_hit > 0.93, jitter < 1 ms)")
+    return counts, check
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2768,6 +3146,13 @@ def main() -> None:
                                                   keys_all)
     for name, r in variants_checks.items():
         results[name]["variants"] = r
+    counts_m, mesh_checks = run_mesh_path(dev, args.seed, feats, keys_all,
+                                          a_sigs, a_marks, a_vois)
+    for name, r in mesh_checks.items():
+        results[name]["mesh"] = r
+    counts_mp = run_multiproc_path(dev, args.seed)
+    counts_e, example_check = run_example_path(dev, args.seed)
+    results["ola"]["example"] = example_check
 
     if args.profile:
         profile_request(feats, keys_all, dev)
@@ -2777,7 +3162,8 @@ def main() -> None:
     launches = {**counts, "walk": counts_a["walk"],
                 "rfft_fused": counts_k5["rfft_fused"],
                 "irfft_fused": counts_k5["irfft_fused"]}
-    for counts_p in (counts_f, counts_c, counts_v):
+    for counts_p in (counts_f, counts_c, counts_v, counts_m, counts_mp,
+                     counts_e):
         for name, c in counts_p.items():
             launches[name] += c
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
@@ -2788,7 +3174,8 @@ def main() -> None:
                     **{k: r[k] for k in ("bytes_bound_ms",
                                          "chain_ns_per_step",
                                          "padded_bound_ms", "copy_synthesis",
-                                         "facade", "cli", "variants")
+                                         "facade", "cli", "variants",
+                                         "mesh", "example")
                        if k in r})
                for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))

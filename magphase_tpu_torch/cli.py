@@ -22,10 +22,19 @@ Usage:
 The subcommands, flags, defaults, exit codes, manifest and output files
 are the JAX CLI's, so a corpus directory may be resumed by either.
 ``--device`` (default ``cuda``) on extract and generate picks where the
-work runs; a command asked for CUDA on a machine without it raises.  The
-port runs in one process on one card: ``--data-parallel`` is a no-op with
-fewer than two CUDA devices (as the JAX CLI's with fewer than two local
-devices) and raises with more, and a multi-process environment raises.
+work runs; a command asked for CUDA on a machine without it raises.
+``--data-parallel`` splits every batch over this process's CUDA devices
+(parallel/mesh.py; a no-op with fewer than two, as the JAX CLI's with
+fewer than two local devices).
+
+Multi-process corpus runs (several hosts, or several processes on one
+host) split the token list across processes and write one manifest per
+process; outputs are byte-identical to a single-process run.  Launch with
+torchrun (``torchrun --nproc-per-node 2 -m magphase_tpu_torch.cli extract
+...``: each process takes ``cuda:LOCAL_RANK``) or with the JAX CLI's
+variables (``JAX_COORDINATOR_ADDRESS=host:port JAX_NUM_PROCESSES=2
+JAX_PROCESS_ID=i``); the processes meet in a gloo group, which carries
+only the weight digest and the metrics sum.
 """
 from __future__ import annotations
 
@@ -44,43 +53,97 @@ def _add_common(p):
 
 def _device(args):
     """The torch device of ``--device``; raises where CUDA is asked for and
-    absent (the command must not carry on on the CPU)."""
+    absent (the command must not carry on on the CPU).  Under torchrun
+    with several processes on this host, a bare ``cuda`` is this
+    process's own card, ``cuda:LOCAL_RANK``."""
     import torch
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available; pass --device cpu to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and _local_rank() is not None:
+        dev = torch.device("cuda", _local_rank())
     return dev
 
 
-def _host_partition(tokens, weights_fn=None):
-    """This process's token shard and its manifest file name.  The port
-    runs single-process: the whole list and the JAX CLI's single-host
-    manifest name.  A multi-process environment (the JAX package's
-    coordinator variable, or a torch WORLD_SIZE above 1) raises rather
-    than writing a corpus that every process would duplicate.
-    ``weights_fn`` (per-token durations for multi-host balancing) is not
-    called."""
-    del weights_fn
-    if (os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        raise RuntimeError("multi-process corpus runs are not supported by "
-                           "the port (ROADMAP queue 1 item 8)")
-    return tokens, ".magphase_manifest.json"
-
-
-def _maybe_mesh(flag: bool):
-    """None: the port has no device mesh.  ``--data-parallel`` with fewer
-    than two CUDA devices is a no-op, as the JAX CLI's with fewer than two
-    local devices; with two or more it raises (multi-GPU is ROADMAP queue
-    1 item 8)."""
-    if not flag:
-        return None
-    import torch
-    if torch.cuda.is_available() and torch.cuda.device_count() >= 2:
-        raise ValueError("--data-parallel over several CUDA devices is not "
-                         "ported yet (ROADMAP queue 1 item 8)")
+def _local_rank():
+    """torchrun's LOCAL_RANK when it runs several processes on this host,
+    else None."""
+    if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) > 1:
+        return int(os.environ["LOCAL_RANK"])
     return None
+
+
+def _distributed_setup():
+    """Join the gloo group of a multi-process run (torchrun's variables or
+    the JAX CLI's JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/JAX_PROCESS_ID);
+    a no-op in a single process.  First in every corpus command."""
+    from .parallel.mesh import maybe_initialize_distributed
+    maybe_initialize_distributed()
+
+
+def _host_partition(tokens, weights_fn=None):
+    """This process's token share and its manifest file name.  In a single
+    process: every token and the single-host manifest name.  In a
+    multi-process run: partition_tokens' share and a per-process manifest
+    (the processes share the output directory; their utterances are
+    disjoint, but one manifest file would be contended).
+
+    ``weights_fn() -> list[float]``: optional per-token audio durations,
+    called only in a multi-process run, for LPT balancing.  The processes
+    first agree on a digest of their weights: a failure or a mismatch in
+    any process downgrades every process to round-robin together, since
+    processes that split by different weights would drop or duplicate
+    utterances."""
+    from .parallel.mesh import partition_tokens, rank, world_size
+    n = world_size()
+    if n <= 1:
+        return tokens, ".magphase_manifest.json"
+    weights = None
+    if weights_fn is not None:
+        try:
+            weights = weights_fn()
+        except Exception:
+            weights = None          # unreadable sizes here
+        import zlib
+
+        import torch
+        import torch.distributed as dist
+        if weights is None:
+            digest = [0.0, -1.0, -1.0]
+        else:
+            w = np.asarray(weights, np.float64)
+            digest = [1.0, float(zlib.crc32(w.tobytes())), float(w.size)]
+        mine = torch.tensor(digest, dtype=torch.float64)
+        all_d = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(all_d, mine)
+        all_d = torch.stack(all_d).numpy()
+        if not (np.all(all_d[:, 0] == 1.0) and np.all(all_d == all_d[:1])):
+            weights = None
+    return (partition_tokens(tokens, weights=weights),
+            f".magphase_manifest.p{rank()}.json")
+
+
+def _maybe_mesh(flag: bool, *, device="cuda"):
+    """With ``--data-parallel``, a data mesh over this node's visible
+    cards.  None without the flag, off CUDA, with fewer than two cards (as
+    the JAX CLI), and under torchrun with several processes on this host,
+    where each process has its one card (``cuda:LOCAL_RANK``).
+    Multi-process runs split TOKENS across processes, so no mesh spans
+    processes."""
+    import torch
+    from .parallel.mesh import data_mesh
+    if (not flag or torch.device(device).type != "cuda"
+            or _local_rank() is not None or torch.cuda.device_count() < 2):
+        return None
+    return data_mesh()
+
+
+def _log_totals(metrics) -> None:
+    """Log a command's metrics, the audio seconds summed over every
+    process of a multi-process run (a collective: each process logs its
+    totals once per command)."""
+    metrics.reduce_across_hosts().log_summary()
 
 
 def cmd_extract(args) -> int:
@@ -90,6 +153,7 @@ def cmd_extract(args) -> int:
     from .utils.metrics import setup_logging
     from .vocoder import analysis_for_acoustic_modelling
 
+    _distributed_setup()
     device = _device(args)
     setup_logging()
     tokens = read_scp_file(args.scp)
@@ -97,6 +161,7 @@ def cmd_extract(args) -> int:
     config = {"mag_dim": args.mag_dim, "phase_dim": args.phase_dim,
               "const_rate": args.const_rate}
 
+    info = None
     if args.batch_size > 1 and not args.no_sort:
         # length-sorted batching: homogeneous chunks share shapes and
         # minimise padding (features are per-utterance deterministic, so
@@ -109,11 +174,18 @@ def cmd_extract(args) -> int:
             # unreadable/corrupt files surface later, where crash-list
             # isolation applies per utterance (read_wav_info can raise
             # ValueError/struct.error, not just OSError)
-            pass
+            info = None
 
-    tokens, manifest_name = _host_partition(tokens)
+    def wav_seconds():
+        """Per-token audio seconds, for duration-balanced shares."""
+        d = info if info is not None else {
+            t: read_wav_info(os.path.join(args.wav_dir, t + ".wav"))
+            for t in tokens}
+        return [d[t][0] / d[t][1] for t in tokens]
+
+    tokens, manifest_name = _host_partition(tokens, wav_seconds)
     if args.batch_size > 1:
-        _maybe_mesh(args.data_parallel)
+        mesh = _maybe_mesh(args.data_parallel, device=device)
         # device-batched production path: the tracker + K4 walk, then K1
         # analysis + compression, per chunk
         from .parallel.analysis_batch import analysis_compressed_batch_async
@@ -139,7 +211,7 @@ def cmd_extract(args) -> int:
             get_feats = analysis_compressed_batch_async(
                 sigs, fs, mag_dim=args.mag_dim, phase_dim=args.phase_dim,
                 fft_len=args.fft_len or None,
-                b_const_rate=args.const_rate, device=device)
+                b_const_rate=args.const_rate, mesh=mesh, device=device)
 
             def finalize():
                 for tok, (mml, mrm, mim, lf0, sh) in zip(chunk, get_feats()):
@@ -161,7 +233,7 @@ def cmd_extract(args) -> int:
                                  batch_size=args.batch_size, config=config,
                                  crash_list_path=args.crash_list,
                                  manifest_name=manifest_name)
-        res.metrics.log_summary()
+        _log_totals(res.metrics)
         return 1 if res.failed else 0
 
     def process(tok):
@@ -176,7 +248,7 @@ def cmd_extract(args) -> int:
     res = run_corpus(tokens, process, args.out_dir, config=config,
                      crash_list_path=args.crash_list,
                      manifest_name=manifest_name)
-    res.metrics.log_summary()
+    _log_totals(res.metrics)
     return 1 if res.failed else 0
 
 
@@ -187,6 +259,7 @@ def cmd_generate(args) -> int:
     from .utils.keys import prng_key, split
     from .utils.metrics import setup_logging
 
+    _distributed_setup()
     device = _device(args)
     setup_logging()
     tokens = read_scp_file(args.scp)
@@ -203,8 +276,24 @@ def cmd_generate(args) -> int:
               "phase_dim": args.phase_dim, "pf_type": args.pf_type,
               "const_rate": args.const_rate, "seed": args.seed,
               "hpf": not args.no_hpf, "transport": args.transport}
-    _maybe_mesh(args.data_parallel)
-    tokens, manifest_name = _host_partition(tokens)
+    mesh = _maybe_mesh(args.data_parallel, device=device)
+
+    def feat_seconds():
+        """Per-token audio seconds from the feature files: exact from
+        .shift (the sum of the per-frame hops over fs); constant-rate
+        features carry no .shift and sit on the 5 ms grid."""
+        ws = []
+        for t in tokens:
+            p = os.path.join(args.feats_dir, t + ".shift")
+            if os.path.exists(p):
+                ws.append(float(np.sum(read_binfile(p, 1))) / args.fs)
+            else:
+                nfrm = os.path.getsize(
+                    os.path.join(args.feats_dir, t + ".lf0")) // 4
+                ws.append(nfrm * 5.0e-3)
+        return ws
+
+    tokens, manifest_name = _host_partition(tokens, feat_seconds)
 
     def read_utt_feats(tok):
         d = args.feats_dir
@@ -228,7 +317,7 @@ def cmd_generate(args) -> int:
         res = run_corpus(tokens, process, args.out_dir, config=config,
                          crash_list_path=args.crash_list,
                          manifest_name=manifest_name)
-        res.metrics.log_summary()
+        _log_totals(res.metrics)
         return 1 if res.failed else 0
 
     # fast path: the threaded four-stage pipeline (feature reads + batch
@@ -292,7 +381,7 @@ def cmd_generate(args) -> int:
                         read_batches(todo, unreadable), args.fs,
                         pf_type=args.pf_type, b_out_hpf=not args.no_hpf,
                         pcm16=True, consume=consume, det_fft_syn=True,
-                        transport=args.transport, device=device):
+                        transport=args.transport, mesh=mesh, device=device):
                     for tok, secs in done:
                         res.metrics.add_audio(float(secs))
                         manifest.mark(tok)
@@ -312,7 +401,8 @@ def cmd_generate(args) -> int:
                 utts, args.fs, pf_type=args.pf_type,
                 keys=np.stack([key_of[t] for t in chunk]),
                 b_out_hpf=not args.no_hpf, block_result=False, pcm16=True,
-                det_fft_syn=True, transport=args.transport, device=device)
+                det_fft_syn=True, transport=args.transport, mesh=mesh,
+                device=device)
 
             def finalize():
                 for tok, buf, n in zip(chunk, bufs, lens):
@@ -329,10 +419,10 @@ def cmd_generate(args) -> int:
                                   crash_list_path=args.crash_list,
                                   manifest_name=manifest_name)
         res2.metrics.log_summary()
-        res.metrics.log_summary()
+        _log_totals(res.metrics)
         return 1 if res2.failed else 0
 
-    res.metrics.log_summary()
+    _log_totals(res.metrics)
     return 0
 
 
@@ -441,8 +531,8 @@ def main(argv=None) -> int:
     pe.add_argument("--no-sort", action="store_true",
                     help="keep scp order instead of length-sorted chunks")
     pe.add_argument("--data-parallel", action="store_true",
-                    help="shard batches over all local devices (one CUDA "
-                    "device: no-op)")
+                    help="split batches over this process's CUDA devices "
+                    "(fewer than two: no-op)")
     pe.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:1, cpu)")
     pe.set_defaults(fn=cmd_extract)
@@ -463,8 +553,8 @@ def main(argv=None) -> int:
                     help="feature upload encoding (int8: half the bytes of "
                     "f16, per-utterance-per-coefficient affine uint8)")
     pg.add_argument("--data-parallel", action="store_true",
-                    help="shard batches over all local devices (one CUDA "
-                    "device: no-op)")
+                    help="split batches over this process's CUDA devices "
+                    "(fewer than two: no-op)")
     pg.add_argument("--device", default="cuda",
                     help="torch device to run on (cuda, cuda:1, cpu)")
     pg.set_defaults(fn=cmd_generate)

@@ -28,6 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one builds, the others wait and find the library built (the temporary
 # files are named by process only)
 _LOCK = threading.Lock()
+# the launch counts' read-modify-write: the shards of a mesh launch from
+# threads of their own (parallel/mesh.py:run_sharded)
+_COUNT_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -111,6 +114,15 @@ def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device,
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc}: "
                            f"{lib.mp_error_string(rc).decode()}")
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of ``wrapper`` (``wrapper.launches += 1`` under a
+    lock, so launches from several threads all count).  The wrapper is
+    looked up in its module at call time, so a stand-in that a caller put
+    in its place (chip_smoke.py's recorder) sees the count."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -236,7 +236,7 @@ def rfft_fused(x: torch.Tensor, n: int):
         tw = _device_twiddles(dev, n, False)
         _build.launch(_library(), "mp_rfft_fused", dev, x2.data_ptr(),
                       re.data_ptr(), im.data_ptr(), tw.data_ptr(), rows, n)
-        rfft_fused.launches += 1
+        _build.count_launch(rfft_fused)
     return re.reshape(*lead, h), im.reshape(*lead, h)
 
 
@@ -262,7 +262,7 @@ def irfft_fused(zr: torch.Tensor, zi: torch.Tensor, n: int):
         tw = _device_twiddles(dev, n, True)
         _build.launch(_library(), "mp_irfft_fused", dev, zr2.data_ptr(),
                       zi2.data_ptr(), y.data_ptr(), tw.data_ptr(), rows, n)
-        irfft_fused.launches += 1
+        _build.count_launch(irfft_fused)
     return y.reshape(*lead, n)
 
 

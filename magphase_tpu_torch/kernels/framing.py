@@ -35,7 +35,8 @@ loads one frame at a time.
 Dispatch is by tensor device and nothing else: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises (a failed build
 or load included).  There is no fallback and no switch.  Each wrapper
-counts its kernel launches in a plain integer (``launch_counts``).
+counts its kernel launches in an integer, under a lock
+(``_build.count_launch``, ``launch_counts``).
 
 The kernels are built with nvcc for sm_90a into ``build/torch_kernels/``
 at first use and loaded with ctypes (kernels/_build.py).
@@ -155,7 +156,7 @@ def frames(sig, pm, L, R, voi, nfrms, n_sig, *, fft_len: int,
                   pm.data_ptr(), L.data_ptr(), R.data_ptr(), voi.data_ptr(),
                   nfrms.data_ptr(), n_sig.data_ptr(), out.data_ptr(), B, F,
                   S, fft_len, fam_voiced, fam_unvoiced)
-    frames.launches += 1
+    _build.count_launch(frames)
     return out
 
 
@@ -187,7 +188,7 @@ def ola(frames_, starts, nfrms, *, out_len: int) -> torch.Tensor:
     _build.launch(_library(), "mp_ola", dev, frames_.data_ptr(),
                   starts.data_ptr(), nfrms.data_ptr(), None, None,
                   out.data_ptr(), B, F, N, out_len, 0)
-    ola.launches += 1
+    _build.count_launch(ola)
     return out
 
 
@@ -208,7 +209,7 @@ def ola_anti_ring(frames_, starts, nfrms, wl, wr, *,
     _build.launch(_library(), "mp_ola", dev, frames_.data_ptr(),
                   starts.data_ptr(), nfrms.data_ptr(), wl.data_ptr(),
                   wr.data_ptr(), out.data_ptr(), B, F, N, out_len, 1)
-    ola_anti_ring.launches += 1
+    _build.count_launch(ola_anti_ring)
     return out
 
 

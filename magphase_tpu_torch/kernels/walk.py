@@ -311,7 +311,7 @@ def walk(y_snap, f0, voiced, n_sigs, n_frames, *, fs: int, m_max: int,
                   *(float(c[k]) for k in ("frame_step", "fs", "p_max",
                                           "lo_wide", "hi_wide", "lo_run",
                                           "hi_run")))
-    walk.launches += 1
+    _build.count_launch(walk)
     return marks, flags, n_marks
 
 

@@ -65,8 +65,9 @@ class MagPhaseVocoder:
             device=self.device, **kw)
 
     def analyze_batch(self, signals: list, mesh=None, **kw) -> list:
-        """Batched compressed analysis (tracker + analysis + compression);
-        a ``mesh`` raises ValueError, as in the batch entry."""
+        """Batched compressed analysis (tracker + analysis + compression),
+        split over the devices of a ``mesh`` (parallel.mesh.DataMesh) if
+        one is given."""
         from ..parallel.analysis_batch import analysis_compressed_batch
         return analysis_compressed_batch(
             signals, self.fs, mag_dim=self.mag_dim,
@@ -75,6 +76,7 @@ class MagPhaseVocoder:
             **kw)
 
     def analyze_lossless_batch(self, signals: list, mesh=None, **kw) -> list:
+        """Batched lossless analysis, over a ``mesh`` if one is given."""
         from ..parallel.analysis_batch import analysis_lossless_batch
         return analysis_lossless_batch(signals, self.fs,
                                        fft_len=self.fft_len, mesh=mesh,
@@ -112,8 +114,8 @@ class MagPhaseVocoder:
             key=key, device=self.device)
 
     def synthesize_batch(self, utts, key=None, mesh=None) -> list:
-        """Batched synthesis — the serving path; a ``mesh`` raises
-        ValueError, as in the batch entry."""
+        """Batched synthesis — the serving path — split over the devices of
+        a ``mesh`` if one is given."""
         from ..parallel.batch import synthesis_from_compressed_batch
         return synthesis_from_compressed_batch(
             utts, self.fs, fft_len=self.fft_len,

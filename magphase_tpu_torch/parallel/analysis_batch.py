@@ -18,7 +18,10 @@ zeros either way).  The compressed entry's groups run through
 analysis_compressed_batch_async: prepare -> upload -> both phases ->
 download, a thread each (utils/pipeline.py:run_staged) and, on a card, a
 CUDA stream per device stage (utils/transfer.py); the lossless entry's
-groups run one after another.
+groups run one after another.  Over a data mesh (parallel/mesh.py) each
+group's rows are split over the mesh's devices: phase 1 runs on every
+shard at once, the realised frame bucket is taken over all shards' mark
+counts, and phase 2 runs on every shard at once.
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from ..vocoder import framerate
 from ..vocoder.compressed import (
     _format_kernel, get_num_full_mel_coeffs_from_num_phase_coeffs)
 from ..vocoder.lossless import analysis_core_batch
-from .batch import budget_batch_cap, capped_batch_step
+from .mesh import (as_mesh, budget_batch_cap, capped_batch_step,
+                   run_sharded, shard_batch, unzip)
 
 logger = logging.getLogger(__name__)
 
@@ -63,39 +67,47 @@ def _tracker_frame_geometry(signals: list, fs: int):
     return n_frames, bucket(int(n_frames.max()), 128)
 
 
-def _budget_geometry(signals: list, fs: int, fft_len: int):
+def _budget(mesh) -> int:
+    """The frame-element budget of one group: per device, so a mesh
+    multiplies it by its size."""
+    return MAX_FRAME_ELEMS * (mesh.size if mesh is not None else 1)
+
+
+def _budget_geometry(signals: list, fs: int, fft_len: int, mesh=None):
     """(S, m_max, max_batch): the signal bucket, the walk capacity of the
     longest utterance and the largest batch whose frames stay inside the
     frame-element budget."""
     S = bucket_signal(max(len(s) for s in signals))
     m_max = placement_m_max(S, fs, FRM_STEP)
-    max_b = max(1, int(MAX_FRAME_ELEMS // (m_max * fft_len)))
-    return S, m_max, budget_batch_cap(max_b)
+    max_b = max(1, int(_budget(mesh) // (m_max * fft_len)))
+    return S, m_max, budget_batch_cap(mesh, max_b)
 
 
-def _split_for_budget(signals: list, fs: int, fft_len: int):
+def _split_for_budget(signals: list, fs: int, fft_len: int, mesh=None):
     """An utterance list in groups that each fit the budget."""
-    max_b = _budget_geometry(signals, fs, fft_len)[2]
+    max_b = _budget_geometry(signals, fs, fft_len, mesh)[2]
     if len(signals) <= max_b:
         return [signals]
     return [signals[i:i + max_b] for i in range(0, len(signals), max_b)]
 
 
-def _epochs_budget(epochs, fft_len: int) -> int:
+def _epochs_budget(epochs, fft_len: int, mesh=None) -> int:
     """Max batch of the given-epochs branch under the budget (the frame
     axis comes from the given epochs)."""
     F_est = bucket(max(len(p) for p, _ in epochs), FRM_STEP)
-    return budget_batch_cap(max(1, int(MAX_FRAME_ELEMS // (F_est * fft_len))))
+    return budget_batch_cap(mesh, max(1, int(_budget(mesh)
+                                             // (F_est * fft_len))))
 
 
-def _host_signal_batch(signals: list, fs: int, fft_len: int = 4096):
+def _host_signal_batch(signals: list, fs: int, fft_len: int = 4096,
+                       mesh=None):
     """Host half of a group: the batch axis padded with short silent
-    dummies to the bucket step, float32 rows (B, S), and the tracker
-    geometry.  Returns (signals incl. dummies, (sigs, n_sigs, n_frames),
-    S, Tmax, m_max, n_real)."""
+    dummies to the bucket step (a multiple of the mesh size), float32 rows
+    (B, S), and the tracker geometry.  Returns (signals incl. dummies,
+    (sigs, n_sigs, n_frames), S, Tmax, m_max, n_real)."""
     n_real = len(signals)
-    S, m_max, max_b = _budget_geometry(signals, fs, fft_len)
-    B = bucket(n_real, capped_batch_step(max_b))
+    S, m_max, max_b = _budget_geometry(signals, fs, fft_len, mesh)
+    B = bucket(n_real, capped_batch_step(mesh, max_b))
     if B > n_real:
         signals = list(signals) + [np.zeros(1024)] * (B - n_real)
     sigs = np.zeros((B, S), np.float32)
@@ -106,14 +118,14 @@ def _host_signal_batch(signals: list, fs: int, fft_len: int = 4096):
     return signals, (sigs, n_sigs, n_frames), S, Tmax, m_max, n_real
 
 
-def _given_epochs_rows(signals, epochs, fs: int, max_b: int, device):
-    """The given-epochs batch on ``device``: the batch axis padded with
-    silent dummies (two marks each) to the bucket step, signals to the
-    signal bucket, marks (rounded to samples) and voicing to the frame
-    bucket.  Returns ((sig, pm, nfrms, n_sig, voi) tensors, the real
-    utterances' frame counts, their voicing as float64)."""
+def _given_epochs_rows(signals, epochs, fs: int, max_b: int, mesh):
+    """The given-epochs batch split over ``mesh``: the batch axis padded
+    with silent dummies (two marks each) to the bucket step, signals to
+    the signal bucket, marks (rounded to samples) and voicing to the frame
+    bucket.  Returns (per-shard blocks of (sig, pm, nfrms, n_sig, voi),
+    the real utterances' frame counts, their voicing as float64)."""
     n_real = len(signals)
-    B = bucket(n_real, capped_batch_step(max_b))
+    B = bucket(n_real, capped_batch_step(mesh, max_b))
     if B > n_real:
         d_ep = (np.asarray([100, 300]) / float(fs), np.zeros(2))
         signals = list(signals) + [np.zeros(1024)] * (B - n_real)
@@ -124,16 +136,13 @@ def _given_epochs_rows(signals, epochs, fs: int, max_b: int, device):
     nfrms = [len(p) for p in pms]
     S = bucket_signal(max(len(s) for s in signals))
     F = bucket(max(nfrms), FRM_STEP)
-
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
-    rows = (dev(np.stack([pad_to(np.asarray(s, np.float32), S)
-                          for s in signals])),
-            dev(np.stack([pad_to(p.astype(np.int32), F) for p in pms])),
-            dev(np.asarray(nfrms, np.int32)),
-            dev(np.asarray([len(s) for s in signals], np.int32)),
-            dev(np.stack([pad_to(v.astype(np.float32), F) for v in vois])))
+    rows = shard_batch(
+        mesh, np.stack([pad_to(np.asarray(s, np.float32), S)
+                        for s in signals]),
+        np.stack([pad_to(p.astype(np.int32), F) for p in pms]),
+        np.asarray(nfrms, np.int32),
+        np.asarray([len(s) for s in signals], np.int32),
+        np.stack([pad_to(v.astype(np.float32), F) for v in vois]))
     return rows, nfrms[:n_real], vois[:n_real]
 
 
@@ -243,10 +252,7 @@ def _encode_u8(mml, mrm, mim, n_valid):
     return q, scale, lo
 
 
-def _check_options(mesh, feat_dtype) -> None:
-    if mesh is not None:
-        raise ValueError("mesh must be None: multi-device analysis is not "
-                         "supported")
+def _check_options(feat_dtype) -> None:
     if not any(np.dtype(feat_dtype) == np.dtype(d) for d in FEAT_DTYPES):
         raise ValueError(f"feat_dtype={feat_dtype!r}: np.float16, np.float32 "
                          "or np.uint8")
@@ -280,10 +286,13 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
     streams whatever ``feat_dtype`` says.  ``device``: where the work
     runs.
 
-    Not ported: a ``mesh`` (ValueError).  An unknown
-    MAGPHASE_TRACKER_WHITEN value raises ValueError too."""
-    _check_options(mesh, feat_dtype)
-    device = torch.device(device)
+    ``mesh``: a parallel.mesh.DataMesh; each group's rows are split over
+    its devices, and the budget and the batch bucket grow with the mesh
+    size (``device`` is then not used).  Anything but a DataMesh or None
+    raises ValueError, as does an unknown MAGPHASE_TRACKER_WHITEN
+    value."""
+    _check_options(feat_dtype)
+    mesh = as_mesh(mesh, device)
     alpha = define_alpha(fs)
     if fft_len is None:
         fft_len = define_fft_len(fs)
@@ -291,18 +300,14 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
         alpha_phase = alpha
     mag_dim_ph = get_num_full_mel_coeffs_from_num_phase_coeffs(
         define_crossfade_params(fs)[0], phase_dim, alpha_phase, fs)
-    kw = dict(fft_len=fft_len, mag_dim=mag_dim, phase_dim=phase_dim,
-              mag_dim_ph=mag_dim_ph, alpha=alpha, alpha_phase=alpha_phase,
-              b_const_rate=b_const_rate)
 
     if epochs is None:
         return analysis_compressed_batch_async(
             signals, fs, mag_dim=mag_dim, phase_dim=phase_dim,
             fft_len=fft_len, alpha_phase=alpha_phase,
-            b_const_rate=b_const_rate, feat_dtype=feat_dtype,
-            device=device)()
+            b_const_rate=b_const_rate, feat_dtype=feat_dtype, mesh=mesh)()
 
-    max_b = _epochs_budget(epochs, fft_len)
+    max_b = _epochs_budget(epochs, fft_len, mesh)
     if len(signals) > max_b:
         out = []
         for i in range(0, len(signals), max_b):
@@ -310,22 +315,32 @@ def analysis_compressed_batch(signals: list, fs: int, mag_dim: int = 60,
                 signals[i:i + max_b], fs, mag_dim=mag_dim,
                 phase_dim=phase_dim, fft_len=fft_len,
                 epochs=epochs[i:i + max_b], alpha_phase=alpha_phase,
-                b_const_rate=b_const_rate, device=device))
+                b_const_rate=b_const_rate, mesh=mesh))
         return out
-    rows, nfrms, _ = _given_epochs_rows(signals, epochs, fs, max_b, device)
-    sig, pm, nfrms_d = rows[:3]
-    mag, real, imag, f0, shift = analysis_core_batch(*rows, fft_len=fft_len,
-                                                     fs=fs)
-    n_valid = nfrms_d
-    if b_const_rate:
-        mag, real, imag, f0, n_valid = _const_resample_batch(
-            mag, real, imag, f0, pm, nfrms_d, crs=fs * 5.0 / 1000.0,
-            fc_max=_fc_max(sig.shape[1], fs, True))
-    mml, mrm, mim, lf0 = _compress_streams(
-        mag, real, imag, f0, **{k: v for k, v in kw.items()
-                                if k not in ("fft_len", "b_const_rate")})
-    host = transfer.to_host((mml, mrm, mim, lf0, shift, n_valid), None, None)
+    rows, nfrms, _ = _given_epochs_rows(signals, epochs, fs, max_b, mesh)
+    ckw = dict(mag_dim=mag_dim, phase_dim=phase_dim, mag_dim_ph=mag_dim_ph,
+               alpha=alpha, alpha_phase=alpha_phase)
+
+    def shard(sig, pm, nfrms_d, n_sig, voi):
+        mag, real, imag, f0, shift = analysis_core_batch(
+            sig, pm, nfrms_d, n_sig, voi, fft_len=fft_len, fs=fs)
+        n_valid = nfrms_d
+        if b_const_rate:
+            mag, real, imag, f0, n_valid = _const_resample_batch(
+                mag, real, imag, f0, pm, nfrms_d, crs=fs * 5.0 / 1000.0,
+                fc_max=_fc_max(sig.shape[1], fs, True))
+        mml, mrm, mim, lf0 = _compress_streams(mag, real, imag, f0, **ckw)
+        return transfer.to_host((mml, mrm, mim, lf0, shift, n_valid), None,
+                                None)
+
+    host = _concat_shards(run_sharded(shard, mesh, rows))
     return _per_utterance(*host, nfrms, len(nfrms))
+
+
+def _concat_shards(results) -> list:
+    """Per-shard lists of host arrays -> one array per output, the shards'
+    rows in order."""
+    return [np.concatenate(x) for x in zip(*results)]
 
 
 def analysis_compressed_batch_async(signals: list, fs: int,
@@ -347,9 +362,12 @@ def analysis_compressed_batch_async(signals: list, fs: int,
     so the features are the same.  ``feat_dtype``: np.float16, np.float32
     or np.uint8 (variable rate; constant rate falls back to float16), as
     in analysis_compressed_batch.  A stage that raises tears the pipeline
-    down and re-raises in ``finalize``."""
-    _check_options(mesh, feat_dtype)
-    device = torch.device(device)
+    down and re-raises in ``finalize``.  With a ``mesh``, each group's rows
+    are split over its devices: phase 1 runs on every shard at once, the
+    realised frame bucket comes from all shards' mark counts, then phase
+    2 runs on every shard, each shard with its own three streams."""
+    _check_options(feat_dtype)
+    mesh = as_mesh(mesh, device)
     alpha = define_alpha(fs)
     if fft_len is None:
         fft_len = define_fft_len(fs)
@@ -363,42 +381,51 @@ def analysis_compressed_batch_async(signals: list, fs: int,
         enc = "f16" if b_const_rate else "u8"
     else:
         enc = "f16" if np.dtype(feat_dtype) == np.float16 else "f32"
-    legs = transfer.Legs(device)
+    legs = transfer.Legs(mesh)
 
     def prep(group):
         signals_g, host, S, Tmax, m_max, n_real = _host_signal_batch(
-            group, fs, fft_len)
+            group, fs, fft_len, mesh)
         return dict(signals=signals_g, host=host, S=S, Tmax=Tmax,
                     m_max=m_max, n_real=n_real)
 
     def upload(p):
-        p["dev"], p["event"] = transfer.upload(p.pop("host"), device,
-                                               legs.upload)
+        p["dev"] = transfer.upload_sharded(p.pop("host"), mesh, legs.upload)
         return p
 
+    def phase1(dev, stream, *, Tmax, m_max):
+        (sigs, n_sigs, n_frames), event = dev
+        transfer.adopt((sigs, n_sigs, n_frames), stream, event)
+        marks, flags, n_marks = _track_place_impl(
+            sigs, n_sigs, n_frames, fs=fs, n_frames_max=Tmax, m_max=m_max)
+        return sigs, n_sigs, marks, flags, n_marks, n_marks.cpu().numpy()
+
+    def phase2(sigs, n_sigs, marks, flags, n_marks, stream, *, S, F):
+        *outs, n_valid = _analyze_compress_impl(
+            sigs, marks, flags, n_marks, n_sigs, fs=fs, fft_len=fft_len,
+            F=F, fc_max=_fc_max(S, fs, b_const_rate),
+            feats_f16=enc == "f16", **ckw)
+        if enc == "u8":
+            outs = list(_encode_u8(*outs[:3], n_valid)) + outs[3:]
+        return tuple(outs) + (n_valid,), transfer.record(stream)
+
     def compute(p):
-        with transfer.on(legs.compute):
-            sigs, n_sigs, n_frames = p.pop("dev")
-            transfer.adopt((sigs, n_sigs, n_frames), legs.compute,
-                           p["event"])
-            marks, flags, n_marks = _track_place_impl(
-                sigs, n_sigs, n_frames, fs=fs, n_frames_max=p["Tmax"],
-                m_max=p["m_max"])
-            p["nm"] = n_marks.cpu().numpy()
-            Fa = min(p["m_max"], bucket_frames(int(p["nm"].max())))
-            *outs, n_valid = _analyze_compress_impl(
-                sigs, marks, flags, n_marks, n_sigs, fs=fs, fft_len=fft_len,
-                F=Fa, fc_max=_fc_max(p["S"], fs, b_const_rate),
-                feats_f16=enc == "f16", **ckw)
-            if enc == "u8":
-                outs = list(_encode_u8(*outs[:3], n_valid)) + outs[3:]
-            p["out"] = tuple(outs) + (n_valid,)
-            p["event"] = transfer.record(legs.compute)
+        streams = legs.compute
+        ph1 = run_sharded(phase1, mesh, [p.pop("dev"), streams],
+                          dict(Tmax=p["Tmax"], m_max=p["m_max"]),
+                          streams=streams)
+        *blocks, nms = unzip(ph1)
+        p["nm"] = np.concatenate(nms)
+        Fa = min(p["m_max"], bucket_frames(int(p["nm"].max())))
+        p["out"] = run_sharded(phase2, mesh, [*blocks, streams],
+                               dict(S=p["S"], F=Fa), streams=streams)
         return p
 
     def download(p):
         global capacity_fallbacks
-        host = transfer.to_host(p.pop("out"), legs.download, p.pop("event"))
+        host = _concat_shards(
+            transfer.to_host(out, legs.download[i], event)
+            for i, (out, event) in enumerate(p.pop("out")))
         nm, n_real = p["nm"], p["n_real"]
         if enc == "u8":
             q, scale, lo, lf0, shift, n_valid = host
@@ -421,18 +448,19 @@ def analysis_compressed_batch_async(signals: list, fs: int,
             logger.warning("epoch-walk capacity hit for %d utterance(s); "
                            "host-walk fallback", len(trunc))
             capacity_fallbacks += len(trunc)
-            eps = [tracker.extract_epochs(p["signals"][b], fs, device=device)
+            dev0 = mesh.devices[0]
+            eps = [tracker.extract_epochs(p["signals"][b], fs, device=dev0)
                    for b in trunc]
             fixed = analysis_compressed_batch(
                 [p["signals"][b] for b in trunc], fs, mag_dim=mag_dim,
                 phase_dim=phase_dim, fft_len=fft_len,
                 alpha_phase=alpha_phase, b_const_rate=b_const_rate,
-                epochs=eps, device=device)
+                epochs=eps, device=dev0)
             for j, b in enumerate(trunc):
                 out[b] = fixed[j]
         return out
 
-    groups = _split_for_budget(signals, fs, fft_len)
+    groups = _split_for_budget(signals, fs, fft_len, mesh)
     pipe = run_staged(map(prep, groups), [upload, compute, download])
 
     def finalize():
@@ -492,25 +520,41 @@ def _decode_lossless(enc: dict, b: int, n: int):
             np.where(nz, np.sin(a), 0.0).astype(np.float32))
 
 
+def _phase1_shard(sigs, n_sigs, n_frames, *, fs: int, n_frames_max: int,
+                  m_max: int):
+    """Phase 1 on one shard's rows, and its (b,) mark counts on the
+    host."""
+    marks, flags, n_marks = _track_place_impl(
+        sigs, n_sigs, n_frames, fs=fs, n_frames_max=n_frames_max,
+        m_max=m_max)
+    return marks, flags, n_marks, n_marks.cpu().numpy()
+
+
 def _analyze_lossless_tracked_group(group, fs, *, fft_len, transport,
-                                    device):
+                                    mesh):
     """Phase 1 and the lossless analysis for one budget group of the
-    tracked branch, at the realised frame bucket (a multiple of 128, as the
-    JAX package trims to)."""
+    tracked branch, every shard at once, at the realised frame bucket of
+    all shards' marks (a multiple of 128, as the JAX package trims to)."""
     global capacity_fallbacks
     signals_g, host, S, Tmax, m_max, n_real = _host_signal_batch(
-        group, fs, fft_len)
-    sigs, n_sigs, n_frames = (torch.from_numpy(a).to(device) for a in host)
-    marks, flags, n_marks = _track_place_impl(
-        sigs, n_sigs, n_frames, fs=fs, n_frames_max=Tmax, m_max=m_max)
-    nm = n_marks.cpu().numpy()
+        group, fs, fft_len, mesh)
+    sigs, n_sigs, n_frames = shard_batch(mesh, *host)
+    marks, flags, n_marks, nms = unzip(run_sharded(
+        _phase1_shard, mesh, [sigs, n_sigs, n_frames],
+        dict(fs=fs, n_frames_max=Tmax, m_max=m_max)))
+    nm = np.concatenate(nms)
     Fa = min(m_max, bucket(int(nm.max()), FRM_STEP))
-    mag, real, imag, _f0, shift = analysis_core_batch(
-        sigs, marks[:, :Fa], n_marks, n_sigs, flags[:, :Fa],
-        fft_len=fft_len, fs=fs)
-    enc = {k: v.cpu().numpy() for k, v in _encode_lossless(
-        mag, real, imag, n_marks, transport).items()}
-    shift, flags = shift.cpu().numpy(), flags[:, :Fa].cpu().numpy()
+
+    def shard(sig, n_sig, mk, fl, n_mk):
+        mag, real, imag, _f0, shift = analysis_core_batch(
+            sig, mk[:, :Fa], n_mk, n_sig, fl[:, :Fa], fft_len=fft_len, fs=fs)
+        enc = _encode_lossless(mag, real, imag, n_mk, transport)
+        return ({k: v.cpu().numpy() for k, v in enc.items()},
+                shift.cpu().numpy(), fl[:, :Fa].cpu().numpy())
+
+    res = run_sharded(shard, mesh, [sigs, n_sigs, marks, flags, n_marks])
+    enc = {k: np.concatenate([r[0][k] for r in res]) for k in res[0][0]}
+    shift, flags = _concat_shards(r[1:] for r in res)
     out = []
     for b in range(n_real):
         n = int(nm[b])
@@ -526,11 +570,12 @@ def _analyze_lossless_tracked_group(group, fs, *, fft_len, transport,
         logger.warning("epoch-walk capacity hit for %d utterance(s); "
                        "host-walk fallback", len(trunc))
         capacity_fallbacks += len(trunc)
-        eps = [tracker.extract_epochs(signals_g[b], fs, device=device)
+        dev0 = mesh.devices[0]
+        eps = [tracker.extract_epochs(signals_g[b], fs, device=dev0)
                for b in trunc]
         fixed = analysis_lossless_batch(
             [signals_g[b] for b in trunc], fs, fft_len=fft_len, epochs=eps,
-            device=device)
+            device=dev0)
         for j, b in enumerate(trunc):
             out[b] = fixed[j]
     return out
@@ -552,42 +597,42 @@ def analysis_lossless_batch(signals: list, fs: int,
     affine uint16), each decoded on the host as the JAX package does.
     ``epochs``: a list of (pm_sec, voi) per signal instead of the tracker;
     that branch returns the exact features whatever ``transport`` says, as
-    in the JAX package.  ``device``: where the work runs.
+    in the JAX package.  ``device``: where the work runs.  ``mesh``: a
+    parallel.mesh.DataMesh over which each group's rows are split (the
+    budget grows with its size; ``device`` is then not used).
 
-    Raise ValueError: a ``mesh`` (multi-device analysis is not ported) and
-    any ``transport`` outside TRANSPORTS."""
-    if mesh is not None:
-        raise ValueError("mesh must be None: multi-device analysis is not "
-                         "supported")
+    Raise ValueError: a ``mesh`` that is not a DataMesh or None, and any
+    ``transport`` outside TRANSPORTS."""
     if transport not in TRANSPORTS:
         raise ValueError(f"unknown transport {transport!r}; one of "
                          f"{TRANSPORTS}")
-    device = torch.device(device)
+    mesh = as_mesh(mesh, device)
     if fft_len is None:
         fft_len = define_fft_len(fs)
 
     if epochs is None:
         out = []
-        for group in _split_for_budget(signals, fs, fft_len):
+        for group in _split_for_budget(signals, fs, fft_len, mesh):
             out.extend(_analyze_lossless_tracked_group(
-                group, fs, fft_len=fft_len, transport=transport,
-                device=device))
+                group, fs, fft_len=fft_len, transport=transport, mesh=mesh))
         return out
 
-    max_b = _epochs_budget(epochs, fft_len)
+    max_b = _epochs_budget(epochs, fft_len, mesh)
     if len(signals) > max_b:
         out = []
         for i in range(0, len(signals), max_b):
             out.extend(analysis_lossless_batch(
                 signals[i:i + max_b], fs, fft_len=fft_len,
-                epochs=epochs[i:i + max_b], device=device))
+                epochs=epochs[i:i + max_b], mesh=mesh))
         return out
-    rows, nfrms, vois = _given_epochs_rows(signals, epochs, fs, max_b,
-                                           device)
-    mag, real, imag, _f0, shift = analysis_core_batch(*rows, fft_len=fft_len,
-                                                      fs=fs)
-    mag, real, imag, shift = (x.cpu().numpy()
-                              for x in (mag, real, imag, shift))
+    rows, nfrms, vois = _given_epochs_rows(signals, epochs, fs, max_b, mesh)
+
+    def shard(*rows_i):
+        mag, real, imag, _f0, shift = analysis_core_batch(
+            *rows_i, fft_len=fft_len, fs=fs)
+        return [x.cpu().numpy() for x in (mag, real, imag, shift)]
+
+    mag, real, imag, shift = _concat_shards(run_sharded(shard, mesh, rows))
     out = []
     for b, n in enumerate(nfrms):
         sh = shift[b, :n].astype(np.int64)

@@ -10,7 +10,9 @@ transport) — so both packages compute from the same inputs: host packing
 and framing geometry in numpy, then post-filter -> mel-unwarp ->
 synthesis core -> spectral high-pass on the given device.  A group runs
 as three halves: prepare (numpy), upload, execute; the blocking entry runs
-them in turn, the pipelined entry on a thread and a stream each.
+them in turn, the pipelined entry on a thread and a stream each.  Over a
+data mesh (parallel/mesh.py) the prepared group's rows are split over the
+mesh's devices, each uploading and synthesising its own rows.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ..vocoder.compressed import (
     synthesis_core_batch, synthesis_fft_len)
 from ..vocoder.framerate import truncate_shifts
 from ..vocoder.postfilter import post_filter, post_filter_merlin
+from .mesh import as_mesh, budget_batch_cap, capped_batch_step, run_sharded
 
 PF_TYPES = ("no", "magphase", "merlin")
 # host-link encodings of the packed feature tensor
@@ -48,24 +51,6 @@ def hpf_mode() -> str:
         raise ValueError(f"MAGPHASE_HPF_MODE={mode!r}: 'spectral' or "
                          "'blocked'")
     return mode
-
-
-# batch-axis bucketing under the frame-element budget (parallel/mesh.py of
-# the JAX package, for a single device)
-_BATCH_STEP = 8
-
-
-def capped_batch_step(max_b: int) -> int:
-    """Batch bucket step, capped by the budget-derived batch cap."""
-    return min(_BATCH_STEP, max(1, max_b))
-
-
-def budget_batch_cap(max_b: int) -> int:
-    """Round a budget-derived batch cap down so that batch bucketing never
-    exceeds it: bucket(n <= cap, capped_batch_step(cap)) <= cap."""
-    if max_b >= _BATCH_STEP:
-        return (max_b // _BATCH_STEP) * _BATCH_STEP
-    return max(1, max_b)
 
 
 def _fused_batch_impl(feats, voi, pm, shifts, nfrms, ns_len, keys,
@@ -149,10 +134,12 @@ def _pcm16_kernel(bufs: torch.Tensor, lens: torch.Tensor,
     return q.to(torch.int16)
 
 
-def _synthesis_geometry(utts, fs: int, fft_len: int, det_fft_syn: bool):
+def _synthesis_geometry(utts, fs: int, fft_len: int, det_fft_syn: bool,
+                        mesh=None):
     """(fft_syn, max_b) for one synthesis call: the adaptive synthesis FFT
     (or the fixed 50 Hz worst case with ``det_fft_syn``) and the batch cap
-    of the frame-element budget."""
+    of the frame-element budget, which is per device: a mesh multiplies it
+    by its size."""
     if det_fft_syn:
         framelen_call = 2 * int(fs / 50.0) + 1
     else:
@@ -164,18 +151,20 @@ def _synthesis_geometry(utts, fs: int, fft_len: int, det_fft_syn: bool):
     fft_syn = synthesis_fft_len(fft_len, framelen_call)
     F_est = bucket(max(np.atleast_1d(np.squeeze(u[3])).shape[0]
                        for u in utts), FRM_STEP)
-    max_b = budget_batch_cap(max(1, int(MAX_FRAME_ELEMS // (F_est * fft_syn))))
+    budget = MAX_FRAME_ELEMS * (mesh.size if mesh is not None else 1)
+    max_b = budget_batch_cap(mesh, max(1, int(budget // (F_est * fft_syn))))
     return fft_syn, max_b
 
 
 def _prepare_synthesis_group(utts, *, n_real, keys, max_b, fs, mag_dim,
-                             phase_dim, transport="f16"):
-    """Host half of one synthesis group: batch-axis bucketing (dummy
-    2-frame unvoiced utterances, dropped on return), float16 feature
+                             phase_dim, transport="f16", mesh=None):
+    """Host half of one synthesis group: batch-axis bucketing to a
+    multiple of the mesh size (dummy 2-frame unvoiced utterances, dropped
+    on return), float16 feature
     packing (uint8 codes with their scale and zero point for the int8
     ``transport``) and vectorised float64 framing geometry.  Pure numpy:
     safe on a feeder thread."""
-    B = bucket(n_real, capped_batch_step(max_b))
+    B = bucket(n_real, capped_batch_step(mesh, max_b))
     if B > n_real:
         dummy = (np.full((2, mag_dim), -3.0, np.float32),
                  np.zeros((2, phase_dim), np.float32),
@@ -224,52 +213,69 @@ def _prepare_synthesis_group(utts, *, n_real, keys, max_b, fs, mag_dim,
                 n_real=n_real, O=bucket_signal(int(max(out_lens))))
 
 
-def _upload_synthesis_group(host: dict, device, stream=None) -> dict:
-    """Device half 1: the group's operands on ``device`` (through pinned
-    buffers on ``stream`` on a card, utils/transfer.py); returns them with
-    the event after their copies."""
+def _upload_synthesis_group(host: dict, mesh, streams=None) -> dict:
+    """Device half 1: each shard's rows of the group's operands on its
+    device (through pinned buffers on ``streams[i]`` on a card,
+    utils/transfer.py); returns, per shard, its tensors with the event
+    after their copies."""
     names = ["feats", "voi", "pm", "shifts", "nfrms", "ns_lens"]
     arrays = [host[n] for n in names]
     arrays.append(host["keys"].astype(np.int64))
     arrays.append(np.asarray(host["out_lens"], np.int64))
     if host["q_scale"] is not None:
         arrays += [host["q_scale"], host["q_zp"]]
-    t, event = transfer.upload(arrays, device, stream)
-    extra = tuple(t[8:]) if host["q_scale"] is not None else (None, None)
-    return dict(args=tuple(t[:7]), lens=t[7], extra=extra, event=event,
-                host=host)
+    shards = []
+    for t, event in transfer.upload_sharded(arrays, mesh, streams):
+        extra = tuple(t[8:]) if host["q_scale"] is not None else (None,
+                                                                  None)
+        shards.append(dict(args=tuple(t[:7]), lens=t[7], extra=extra,
+                           event=event))
+    return dict(shards=shards, host=host)
 
 
-def _group_tables(cfg: dict, device) -> SynthesisTables:
-    """The constant tables of a synthesis configuration on ``device``."""
-    return SynthesisTables(
-        fs=cfg["fs"], fft_len=cfg["fft_len"], alpha=cfg["alpha"],
-        alpha_phase=cfg["alpha_phase"], mag_dim=cfg["mag_dim"],
-        mag_dim_ph=cfg["mag_dim_ph"], pf_type=cfg["pf_type"],
-        out_hpf=cfg["hpf_mode"] if cfg["b_out_hpf"] else None).to(device)
+def _group_tables(cfg: dict, mesh, cache: dict) -> list:
+    """The constant tables of a synthesis configuration on each shard's
+    device, built once per (configuration, device) in ``cache``."""
+    out = []
+    for d in mesh.devices:
+        key = (tuple(sorted(cfg.items())), str(d))
+        if key not in cache:
+            cache[key] = SynthesisTables(
+                fs=cfg["fs"], fft_len=cfg["fft_len"], alpha=cfg["alpha"],
+                alpha_phase=cfg["alpha_phase"], mag_dim=cfg["mag_dim"],
+                mag_dim_ph=cfg["mag_dim_ph"], pf_type=cfg["pf_type"],
+                out_hpf=cfg["hpf_mode"] if cfg["b_out_hpf"] else None).to(d)
+        out.append(cache[key])
+    return out
 
 
-def _execute_synthesis_group(dev: dict, cfg: dict, tables, *,
-                             pcm16: bool) -> torch.Tensor:
-    """Device half 2: the fused synthesis of the group (+ the device PCM16
-    encode), on the calling thread's current stream.  Returns the (B, O)
-    buffers."""
-    bufs = _fused_batch_impl(*dev["args"], *dev["extra"],
-                             out_len_max=dev["host"]["O"], tables=tables,
-                             **cfg)
-    if pcm16:
-        bufs = _pcm16_kernel(bufs, dev["lens"])
-    return bufs
+def _execute_synthesis_group(dev: dict, cfg: dict, tables: list, mesh, *,
+                             pcm16: bool, streams=None) -> list:
+    """Device half 2: the fused synthesis of each shard's rows (+ the
+    device PCM16 encode), every shard at once (run_sharded).  With the
+    pipeline's compute ``streams``, each shard's stream first waits for
+    its upload and ends with an event.  Returns per shard its (B/n, O)
+    buffers and that event (None without ``streams``)."""
+    O = dev["host"]["O"]
+
+    def shard(d, tab, stream):
+        transfer.adopt(d["args"] + d["extra"] + (d["lens"],), stream,
+                       d["event"])
+        bufs = _fused_batch_impl(*d["args"], *d["extra"], out_len_max=O,
+                                 tables=tab, **cfg)
+        if pcm16:
+            bufs = _pcm16_kernel(bufs, d["lens"])
+        return bufs, transfer.record(stream)
+
+    return run_sharded(shard, mesh, [dev["shards"], tables,
+                                     streams or [None] * mesh.size],
+                       streams=streams)
 
 
-def _check_synthesis_options(transport, mesh, pf_type,
-                             per_phase_type) -> None:
+def _check_synthesis_options(transport, pf_type, per_phase_type) -> None:
     if transport not in TRANSPORTS:
         raise ValueError(f"transport={transport!r}: expected one of "
                          f"{TRANSPORTS}")
-    if mesh is not None:
-        raise ValueError("mesh must be None: multi-device synthesis is not "
-                         "supported")
     if pf_type not in PF_TYPES:
         raise ValueError(f"pf_type={pf_type!r}: expected one of {PF_TYPES}")
     if per_phase_type not in PER_PHASE_TYPES:
@@ -319,8 +325,9 @@ def synthesis_from_compressed_batch(utts, fs: int,
 
     Returns a list of float64 numpy waveforms, or with
     ``block_result=False`` the (B, O) float32 buffer tensor on ``device``
-    and the per-utterance lengths (a list of row tensors when the batch
-    was split under the frame-element budget).  ``pcm16`` (with
+    and the per-utterance lengths (a list of row tensors, each on its
+    shard's device, when the batch was split under the frame-element
+    budget or over a mesh).  ``pcm16`` (with
     ``block_result=False``) peak-normalises and quantises the buffers to
     int16 on the device.  ``transport``: the packed features' encoding,
     "f16" or "int8" (per-(utterance, coefficient) affine uint8 codes,
@@ -331,26 +338,32 @@ def synthesis_from_compressed_batch(utts, fs: int,
     ``MAGPHASE_HPF_MODE``: 'spectral' (the default) or 'blocked' (hpf_mode);
     with 'blocked', ``det_fft_syn`` and per-utterance keys, every output
     sample of an utterance is independent of the batch it is in.
-    ``mesh=None`` only.  Anything else raises ValueError.
+
+    ``mesh``: a parallel.mesh.DataMesh; each group's rows are split over
+    its devices (the keys derived from the global index first), each
+    device runs the synthesis of its rows, and the frame-element budget
+    and the batch bucket grow with the mesh size; ``device`` is then not
+    used.  Anything but a DataMesh or None raises ValueError.
     """
     if pcm16 and block_result:
         raise ValueError("pcm16=True is a device transfer encoding; use "
                          "block_result=False")
-    _check_synthesis_options(transport, mesh, pf_type, per_phase_type)
+    _check_synthesis_options(transport, pf_type, per_phase_type)
+    mesh = as_mesh(mesh, device)
     if keys is None:
         keys = split(prng_key(0) if key is None else key, len(utts))
     keys = np.asarray(keys, np.uint32)
     if keys.shape != (len(utts), 2):
         raise ValueError(f"keys shape {keys.shape}, expected "
                          f"({len(utts)}, 2)")
-    device = torch.device(device)
     alpha = define_alpha(fs)
     if fft_len is None:
         fft_len = define_fft_len(fs)
     if alpha_phase is None:
         alpha_phase = alpha
 
-    fft_syn, max_b = _synthesis_geometry(utts, fs, fft_len, det_fft_syn)
+    fft_syn, max_b = _synthesis_geometry(utts, fs, fft_len, det_fft_syn,
+                                         mesh)
     if len(utts) > max_b:
         out, rows, lens_all = [], [], []
         for i in range(0, len(utts), max_b):
@@ -360,7 +373,7 @@ def synthesis_from_compressed_batch(utts, fs: int,
                 alpha_phase=alpha_phase, b_out_hpf=b_out_hpf,
                 pf_type=pf_type, block_result=block_result, pcm16=pcm16,
                 transport=transport, keys=keys[i:i + max_b],
-                det_fft_syn=det_fft_syn, device=device)
+                det_fft_syn=det_fft_syn, mesh=mesh)
             if block_result:
                 out.extend(r)
             else:
@@ -374,15 +387,18 @@ def synthesis_from_compressed_batch(utts, fs: int,
     host = _prepare_synthesis_group(
         utts, n_real=len(utts), keys=keys, max_b=max_b, fs=fs,
         mag_dim=cfg["mag_dim"], phase_dim=cfg["phase_dim"],
-        transport=transport)
-    dev = _upload_synthesis_group(host, device)
-    bufs = _execute_synthesis_group(dev, cfg, _group_tables(cfg, device),
-                                    pcm16=pcm16)
+        transport=transport, mesh=mesh)
+    dev = _upload_synthesis_group(host, mesh)
+    shards = [b for b, _ in _execute_synthesis_group(
+        dev, cfg, _group_tables(cfg, mesh, {}), mesh, pcm16=pcm16)]
     out_lens = host["out_lens"]
     n_real = host["n_real"]
     if not block_result:
-        return bufs, out_lens[:n_real]
-    bufs = bufs.cpu().numpy()
+        if mesh.size == 1:
+            return shards[0], out_lens[:n_real]
+        rows = [r for b in shards for r in b][:n_real]
+        return rows, out_lens[:n_real]
+    bufs = np.concatenate([b.cpu().numpy() for b in shards])
     return [np.asarray(bufs[i][:out_lens[i]], np.float64)
             for i in range(n_real)]
 
@@ -423,17 +439,18 @@ def synthesis_batches_pipelined(batches, fs: int,
     output equals synthesis_from_compressed_batch's for the same
     utterances, keys and det_fft_syn.  A stage that raises tears the
     pipeline down and re-raises here.  Options as the blocking entry's;
-    ``device``: where the work runs.
+    ``device``: where the work runs; with a ``mesh`` each group's rows
+    are split over its devices, each shard with its own three streams.
     """
-    _check_synthesis_options(transport, mesh, pf_type, per_phase_type)
-    device = torch.device(device)
+    _check_synthesis_options(transport, pf_type, per_phase_type)
+    mesh = as_mesh(mesh, device)
     alpha = define_alpha(fs)
     if fft_len is None:
         fft_len = define_fft_len(fs)
     if alpha_phase is None:
         alpha_phase = alpha
-    legs = transfer.Legs(device)
-    tables = {}                 # per configuration, on the execute thread
+    legs = transfer.Legs(mesh)
+    tables = {}        # per (configuration, device), on the execute thread
 
     def gen_groups():
         for batch in batches:
@@ -441,7 +458,7 @@ def synthesis_batches_pipelined(batches, fs: int,
             tag = batch[2] if len(batch) > 2 else None
             keys = np.asarray(keys, np.uint32).reshape(len(utts), 2)
             fft_syn, max_b = _synthesis_geometry(utts, fs, fft_len,
-                                                 det_fft_syn)
+                                                 det_fft_syn, mesh)
             cfg = _synthesis_config(utts, fs, fft_syn, alpha, alpha_phase,
                                     b_voi_ap_win, per_phase_type, b_out_hpf,
                                     pf_type)
@@ -450,30 +467,33 @@ def synthesis_batches_pipelined(batches, fs: int,
                 host = _prepare_synthesis_group(
                     part, n_real=len(part), keys=keys[i:i + max_b],
                     max_b=max_b, fs=fs, mag_dim=cfg["mag_dim"],
-                    phase_dim=cfg["phase_dim"], transport=transport)
+                    phase_dim=cfg["phase_dim"], transport=transport,
+                    mesh=mesh)
                 host["tag"] = (tag, i)
                 host["cfg"] = cfg
                 yield host
 
     def upload(host):
-        return _upload_synthesis_group(host, device, legs.upload)
+        return _upload_synthesis_group(host, mesh, legs.upload)
 
     def execute(dev):
         cfg = dev["host"]["cfg"]
-        with transfer.on(legs.compute):
-            transfer.adopt(dev["args"] + dev["extra"] + (dev["lens"],),
-                           legs.compute, dev["event"])
-            key = tuple(sorted(cfg.items()))
-            if key not in tables:
-                tables[key] = _group_tables(cfg, device)
-            bufs = _execute_synthesis_group(dev, cfg, tables[key],
-                                            pcm16=pcm16)
-            return bufs, dev["host"], transfer.record(legs.compute)
+        out = _execute_synthesis_group(dev, cfg,
+                                       _group_tables(cfg, mesh, tables),
+                                       mesh, pcm16=pcm16,
+                                       streams=legs.compute)
+        return out, dev["host"]
 
     def download(x):
-        bufs, host, event = x
-        rows = transfer.rows_to_host(bufs, host["out_lens"][:host["n_real"]],
-                                     legs.download, event)
+        shards, host = x
+        lens = host["out_lens"][:host["n_real"]]
+        k = len(host["out_lens"]) // mesh.size
+        rows = []
+        for i, (bufs, event) in enumerate(shards):
+            mine = lens[i * k:(i + 1) * k]
+            if mine:
+                rows += transfer.rows_to_host(bufs, mine, legs.download[i],
+                                              event)
         if consume is not None:
             return consume(rows, host)
         return [np.asarray(r, np.float64) for r in rows]

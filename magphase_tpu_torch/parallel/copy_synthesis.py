@@ -1,7 +1,8 @@
-"""Batched lossless copy-synthesis: wav in -> wav out on one device (port
-of magphase_tpu/parallel/copy_synthesis.py).
+"""Batched lossless copy-synthesis: wav in -> wav out (port of
+magphase_tpu/parallel/copy_synthesis.py).
 
-Per budget group, all on the device:
+Per budget group, all on the device (on each device of a data mesh, for
+its rows):
   preprocess -> NCCF -> Viterbi -> epoch walk (kernel K4)   phase 1
   pitch-synchronous analysis (kernel K1) + rfft             phase 2
   phasor resynthesis + irfft + centred OLA (kernel K2)
@@ -25,7 +26,7 @@ from ..epochs.placement_device import track_and_place_batch
 from ..utils.padding import bucket, bucket_frames
 from ..vocoder.lossless import analysis_core_batch, synthesis_core_batch
 from .analysis_batch import _budget_geometry, _tracker_frame_geometry
-from .batch import capped_batch_step
+from .mesh import as_mesh, capped_batch_step, run_sharded, shard_batch
 
 logger = logging.getLogger(__name__)
 
@@ -57,20 +58,21 @@ def copy_synthesis_batch(signals: list, fs: int, fft_len: int = 4096,
     silent dummies) and the (B,) mark counts there — for a request split
     into budget groups, a list of rows and a list of counts.
 
-    Raise ValueError: a ``mesh`` (multi-device synthesis is not ported)."""
-    if mesh is not None:
-        raise ValueError("mesh must be None: multi-device copy-synthesis is "
-                         "not supported")
-    device = torch.device(device)
+    ``mesh``: a parallel.mesh.DataMesh; each group's rows are split over
+    its devices, each running the whole copy-synthesis of its rows, and
+    the budget grows with its size (``device`` is then not used); the
+    buffers come back as a list of rows and one of counts.  Anything but
+    a DataMesh or None raises ValueError."""
+    mesh = as_mesh(mesh, device)
     # frame-element budget: split oversized batches into sequential groups
     n_real = len(signals)
-    S, m_max, max_b = _budget_geometry(signals, fs, fft_len)
+    S, m_max, max_b = _budget_geometry(signals, fs, fft_len, mesh)
     if n_real > max_b:
         out, rows, nms = [], [], []
         for i in range(0, n_real, max_b):
             group = signals[i:i + max_b]
-            r = copy_synthesis_batch(group, fs, fft_len=fft_len,
-                                     block_result=block_result, device=device)
+            r = copy_synthesis_batch(group, fs, fft_len=fft_len, mesh=mesh,
+                                     block_result=block_result)
             if block_result:
                 out.extend(r)
             else:
@@ -80,7 +82,7 @@ def copy_synthesis_batch(signals: list, fs: int, fft_len: int = 4096,
         return out if block_result else (rows, nms)
 
     # bucket the batch axis (silent dummy utterances, dropped on return)
-    B = bucket(n_real, capped_batch_step(max_b))
+    B = bucket(n_real, capped_batch_step(mesh, max_b))
     if B > n_real:
         signals = list(signals) + [np.zeros(1024)] * (B - n_real)
     sigs = np.zeros((B, S), np.float32)
@@ -90,15 +92,19 @@ def copy_synthesis_batch(signals: list, fs: int, fft_len: int = 4096,
     n_frames, Tmax = _tracker_frame_geometry(signals, fs)
     out_len_max = S + (1 << 14)
 
-    bufs, n_marks, nm = _copy_synthesis_impl(
-        *(torch.from_numpy(a).to(device) for a in (sigs, n_sigs, n_frames)),
-        fs=fs, n_frames_max=Tmax, m_max=m_max, fft_len=fft_len,
-        out_len_max=out_len_max)
+    res = run_sharded(
+        _copy_synthesis_impl, mesh, shard_batch(mesh, sigs, n_sigs, n_frames),
+        dict(fs=fs, n_frames_max=Tmax, m_max=m_max, fft_len=fft_len,
+             out_len_max=out_len_max))
+    nm = np.concatenate([r[2] for r in res])
     if int(nm[:n_real].max(initial=0)) >= m_max:
         logger.warning("copy-synthesis epoch-walk capacity hit; output "
                        "truncated for some utterance(s)")
     if not block_result:
-        return bufs, n_marks
-    bufs = bufs.cpu().numpy()
+        if mesh.size == 1:
+            return res[0][:2]
+        return ([row for r in res for row in r[0]],
+                [c for r in res for c in r[1]])
+    bufs = np.concatenate([r[0].cpu().numpy() for r in res])
     return [bufs[b, :len(signals[b])].astype(np.float64)
             for b in range(n_real)]

@@ -3,8 +3,9 @@
 
 The reference's only observability is print statements (SURVEY.md §5).
 Here: a lightweight metrics registry with stage timers and audio-seconds/s
-counters, and a torch.profiler hook.  The port runs in one process, so
-nothing is reduced across hosts.
+counters, and a torch.profiler hook.  In a multi-process corpus run the
+audio seconds are summed over the processes' gloo group
+(``reduce_across_hosts``).
 """
 from __future__ import annotations
 
@@ -51,8 +52,16 @@ class Metrics:
         return self.audio_seconds / t if t > 0 else 0.0
 
     def reduce_across_hosts(self):
-        """The totals over all processes: this process's own, since the
-        port runs single-process."""
+        """Sum audio_seconds over every process of the gloo group
+        (parallel/mesh.py:maybe_initialize_distributed); a no-op in a
+        single process.  A collective: every process must call it."""
+        import torch
+        import torch.distributed as dist
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self
+        t = torch.tensor([self.audio_seconds], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        self.audio_seconds = float(t.item())
         return self
 
     def summary(self) -> dict:

@@ -16,6 +16,8 @@ device stage a stream of its own instead:
   host buffers (only the valid samples of each output row) and the
   download thread waits for the copies.
 
+Over a data mesh (parallel/mesh.py) each shard has its own three streams
+on its device, and its block of rows goes up and comes down through them.
 On the CPU every function degrades to plain tensor <-> numpy conversion,
 with no stream.  Nothing here changes a value: the same tensors go
 through the same operations whichever stream runs them.
@@ -29,15 +31,17 @@ import torch
 
 
 class Legs:
-    """The upload, compute and download streams of one pipelined run on
-    ``device`` (all None on the CPU)."""
+    """The upload, compute and download streams of one pipelined run: one
+    of each per shard of ``mesh`` (parallel/mesh.py:DataMesh; a logical
+    shard gets streams of its own on its card), None for a shard on the
+    CPU."""
 
-    def __init__(self, device):
-        self.device = torch.device(device)
-        cuda = self.device.type == "cuda"
-        self.upload, self.compute, self.download = (
-            torch.cuda.Stream(self.device) if cuda else None
-            for _ in range(3))
+    def __init__(self, mesh):
+        def streams():
+            return [torch.cuda.Stream(d) if d.type == "cuda" else None
+                    for d in mesh.devices]
+        self.upload, self.compute, self.download = (streams(), streams(),
+                                                    streams())
 
 
 def on(stream):
@@ -76,6 +80,21 @@ def upload(arrays, device, stream):
         ev = record(stream)
     ev.synchronize()
     return out, ev
+
+
+def upload_sharded(arrays, mesh, streams=None) -> list:
+    """numpy arrays with a common leading (batch) axis -> for each shard of
+    ``mesh``, its contiguous block of rows uploaded to its device (on
+    ``streams[i]``, as ``upload`` does it): a list of (tensors, event) in
+    shard order."""
+    n = mesh.size
+    k = len(arrays[0]) // n
+    if k * n != len(arrays[0]):
+        raise ValueError(f"batch of {len(arrays[0])} rows does not split "
+                         f"over {n} shards")
+    return [upload([a[i * k:(i + 1) * k] for a in arrays], d,
+                   None if streams is None else streams[i])
+            for i, d in enumerate(mesh.devices)]
 
 
 def adopt(tensors, stream, event) -> None:

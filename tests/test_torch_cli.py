@@ -327,29 +327,48 @@ def test_cuda_device_without_cuda_raises(corpus, tmp_path, monkeypatch):
 
 
 def test_data_parallel_and_multi_process_guards(monkeypatch):
-    """--data-parallel is a no-op below two CUDA devices and raises with
-    two or more (multi-GPU is a later port); a multi-process environment
-    raises rather than writing a duplicated corpus."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert tcli._maybe_mesh(True) is None
-    assert tcli._maybe_mesh(False) is None
+    """--data-parallel builds a data mesh over this process's CUDA devices
+    (none below two, off CUDA, or with one card per process under
+    torchrun); under an initialised group of two processes the tokens are
+    partitioned (LPT by the agreed weights) with a per-process manifest;
+    a mistyped coordinator address raises instead of running the whole
+    corpus in every process."""
+    import torch.distributed as dist
+    from magphase_tpu_torch.parallel import mesh as tmesh
+    cuda = torch.device("cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert tcli._maybe_mesh(True) is None
+    assert tcli._maybe_mesh(True, device=cuda) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(ValueError, match="item 8"):
-        tcli._maybe_mesh(True)
-    assert tcli._maybe_mesh(False) is None
+    mesh = tcli._maybe_mesh(True, device=cuda)
+    assert mesh.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert tcli._maybe_mesh(False, device=cuda) is None
+    assert tcli._maybe_mesh(True, device=torch.device("cpu")) is None
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert tcli._maybe_mesh(True, device=cuda) is None
 
     assert tcli._host_partition(["a", "b"]) == (
         ["a", "b"], ".magphase_manifest.json")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="multi-process"):
-        tcli._host_partition(["a", "b"])
-    monkeypatch.setenv("WORLD_SIZE", "1")
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(RuntimeError, match="multi-process"):
-        tcli._host_partition(["a", "b"])
+    monkeypatch.setattr(tmesh, "world_size", lambda: 2)
+    monkeypatch.setattr(tmesh, "rank", lambda: 1)
+
+    def all_gather(out, mine):          # both processes read the same sizes
+        for t in out:
+            t.copy_(mine)
+    monkeypatch.setattr(dist, "all_gather", all_gather)
+    toks = ["a", "b", "c", "d", "e"]
+    weights = [1.0, 5.0, 2.0, 4.0, 3.0]
+    got, manifest = tcli._host_partition(toks, lambda: weights)
+    assert manifest == ".magphase_manifest.p1.json"
+    assert got == tmesh.partition_tokens(toks, 1, 2, weights) == ["d", "e"]
+
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:notaport")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    with pytest.raises(ValueError):
+        tcli._distributed_setup()
+    assert not dist.is_initialized()
 
 
 def test_server_flag_requires_socket_path():

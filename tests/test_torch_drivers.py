@@ -436,6 +436,7 @@ def test_corpus_modules_import_no_jax():
             "import magphase_tpu_torch.utils.eval\n"
             "import magphase_tpu_torch.utils.corpus\n"
             "import magphase_tpu_torch.utils.transfer\n"
+            "import magphase_tpu_torch.parallel.mesh\n"
             "bad = [m for m in sys.modules\n"
             "       if m == 'jax' or m.startswith(('jax.', 'magphase_tpu.'))\n"
             "       or m == 'magphase_tpu']\n"

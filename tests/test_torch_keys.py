@@ -15,10 +15,14 @@ import pytest
 import magphase_tpu
 import magphase_tpu.epochs
 import magphase_tpu.ops
+import magphase_tpu.parallel
+import magphase_tpu.utils
 import magphase_tpu.vocoder
 import magphase_tpu_torch
 import magphase_tpu_torch.epochs
 import magphase_tpu_torch.ops
+import magphase_tpu_torch.parallel
+import magphase_tpu_torch.utils
 from magphase_tpu.parallel import batch as jbatch
 from magphase_tpu_torch.parallel import batch as tbatch
 from magphase_tpu_torch.kernels import _build
@@ -237,8 +241,10 @@ def _public_names(module):
     (magphase_tpu.epochs, magphase_tpu_torch.epochs),
     (magphase_tpu.io, magphase_tpu_torch.io),
     (magphase_tpu.vocoder, magphase_tpu_torch.vocoder),
-    (magphase_tpu.ops, magphase_tpu_torch.ops)],
-    ids=["top", "epochs", "io", "vocoder", "ops"])
+    (magphase_tpu.ops, magphase_tpu_torch.ops),
+    (magphase_tpu.parallel, magphase_tpu_torch.parallel),
+    (magphase_tpu.utils, magphase_tpu_torch.utils)],
+    ids=["top", "epochs", "io", "vocoder", "ops", "parallel", "utils"])
 def test_port_exports_hold_the_jax_exports(pair):
     jmod, tmod = pair
     want = _public_names(jmod)
@@ -246,7 +252,8 @@ def test_port_exports_hold_the_jax_exports(pair):
     for name in tmod.__all__:
         obj = getattr(tmod, name)
         assert callable(obj) or inspect.ismodule(obj) or \
-            name.startswith("DEFAULT")
+            name.startswith("DEFAULT") or \
+            (name in ("SIG_STEP", "FRM_STEP") and isinstance(obj, int))
 
 
 def test_top_level_exports_the_vocoder():
