@@ -3,13 +3,16 @@
     python3 chip_smoke.py [--seed N] [--profile]
 
 Builds the CUDA kernels from magphase_tpu_torch/csrc (framing.cu: K1-K3,
-walk.cu: K4, dft.cu: K5; one nvcc per source, started together), checks
+walk.cu: K4, dft.cu: K5, viterbi.cu: the tracker's Viterbi pass; one nvcc
+per source, started together), checks
 each against its plain torch version at the shapes its path gives it (K1
 beside a device fill of its output; K2 also at one copy-synthesis group's
 geometry, K2 and K3 with a bound over their valid frames alone and, for
 comparison with earlier rows, the bound of the padded frame array; K3 beside the same call with one-sample windows and its SASS count per
 windowed element; K4 beside the chain probe that gives the walk's own
-bound), then
+bound; the Viterbi kernel bitwise on the DP inputs of the 32 analysis
+signals, of one budget group of the analysis cell, of inputs full of ties
+and of one 60 s utterance, beside its own chain probe), then
 drives the port's paths, each with the launch counts set to 0 just before
 it and read just after:
 
@@ -22,7 +25,8 @@ it and read just after:
   same keys given as keys=;
 - wav-in compressed analysis: analysis_compressed_batch requests of 8 and
   192 utterances of 3 s at 48 kHz (fft_len 4096, 60/45 dims, tracked
-  epochs; K4 in phase 1, K1 in phase 2), after a tracked lossless witness
+  epochs; the Viterbi kernel and K4 in phase 1, K1 in phase 2), after a
+  tracked lossless witness
   (tracker + K4 marks -> K1 -> K2), with the card against the CPU on the
   8-utterance request;
 - the K5 lossless witness: the 16 exact-mark witness signals through K1,
@@ -111,6 +115,7 @@ from bench_torch.inputs import (FS, MAG_DIM, MAX_MARK_DIFF_SHARE, PHASE_DIM,
                                 p99_vs_input, serving_vs_cpu)
 from bench_torch.layers import kernel_label
 from bench_torch.run import CELLS as BENCH_CELLS
+from bench_torch.run import POOL_SECONDS as BENCH_POOL_SECONDS
 from bench_torch.run import nvidia_smi
 
 UTT_SECONDS = 3.0
@@ -121,13 +126,16 @@ CSRC = "magphase_tpu_torch/csrc"
 PALLAS = "magphase_tpu/pallas_kernels"
 SOURCES = {"frames": f"{CSRC}/framing.cu", "ola": f"{CSRC}/framing.cu",
            "ola_anti_ring": f"{CSRC}/framing.cu", "walk": f"{CSRC}/walk.cu",
-           "rfft_fused": f"{CSRC}/dft.cu", "irfft_fused": f"{CSRC}/dft.cu"}
+           "rfft_fused": f"{CSRC}/dft.cu", "irfft_fused": f"{CSRC}/dft.cu",
+           "viterbi": f"{CSRC}/viterbi.cu"}
 REPLACES = {"frames": f"{PALLAS}/framing_pallas.py:56",
             "ola": f"{PALLAS}/framing_pallas.py:241",
             "ola_anti_ring": f"{PALLAS}/framing_pallas.py:246",
             "walk": f"{PALLAS}/walk_pallas.py:51",
             "rfft_fused": "tools/dft_pallas.py:139",
-            "irfft_fused": "tools/dft_pallas.py:148"}
+            "irfft_fused": "tools/dft_pallas.py:148",
+            # no Pallas kernel: the JAX package's lax.scan of the DP
+            "viterbi": "magphase_tpu/epochs/tracker.py:277"}
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense float32, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -154,6 +162,11 @@ WARM_RUNS = 10
 WARM_RUNS_ANALYSIS = 5
 WARM_RUNS_COPY = 3
 COPY_SIZES = (8, 192)
+# the Viterbi kernel's inputs beside the 32 analysis signals: one budget
+# group of the analysis cell (24 utterances of its pool's longest, 3.5 s;
+# bench_torch/run.py POOL_SECONDS) and one utterance of 60 s
+VITERBI_CELL_GROUP = 24
+VITERBI_LONG_SECONDS = 60.0
 # kernel_ms: calls per reading, and the read that evicts the card's L2
 # (50 MB on an H100) before each call of a cold reading
 KERNEL_CALLS = 30
@@ -405,6 +418,93 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def viterbi_inputs(sigs, dev):
+    """The tracker's DP inputs on the card for a list of signals, packed as
+    an analysis group packs them: (local, ll_all, valid) of
+    tracker._dp_costs after _preprocess, _nccf and _candidates."""
+    from magphase_tpu_torch.epochs import tracker
+    from magphase_tpu_torch.parallel import analysis_batch as ab
+    _, (sig, _, n_frames), _, Tmax, _, _ = ab._host_signal_batch(sigs, FS,
+                                                                  4096)
+    fs_a = tracker.analysis_rate(FS)[0]
+    xa, _ = tracker._preprocess(torch.from_numpy(sig).to(dev), fs=FS)
+    nccf, valid = tracker._nccf(xa, torch.from_numpy(n_frames).to(dev),
+                                n_frames_max=Tmax, fs_a=fs_a)
+    vals, lags = tracker._candidates(nccf)
+    return (*tracker._dp_costs(vals, lags, valid, fs_a=fs_a), valid)
+
+
+def viterbi_tie_inputs(rng, dev, B: int, T: int) -> dict:
+    """DP inputs full of ties, from candidates made on the host: every
+    candidate a non-peak (-2.0: all voiced states cost 1e6 alike); every
+    candidate of a frame alike with one lag an utterance (voiced states tie
+    everywhere); values and lags from three each (exact ties in costs and
+    jumps) with a tail of invalid frames."""
+    from magphase_tpu_torch.epochs import tracker
+    K = tracker.N_CAND
+    shape = (B, T, K)
+    lag_frame = np.broadcast_to(rng.integers(40, 320, (B, T, 1)), shape)
+    lag_utt = np.broadcast_to(rng.integers(40, 320, (B, 1, 1)), shape)
+    cases = {
+        "all -2.0": (np.full(shape, -2.0), lag_frame, np.ones((B, T), bool)),
+        "equal costs": (np.broadcast_to(rng.uniform(0.3, 0.99, (B, T, 1)),
+                                        shape), lag_utt,
+                        np.ones((B, T), bool)),
+        "three values, invalid tails": (
+            rng.choice([-2.0, 0.5, 0.8], shape),
+            rng.choice([50.0, 100.0, 200.0], shape),
+            np.arange(T)[None, :] < rng.integers(T // 4, T + 1, B)[:, None]),
+    }
+    out = {}
+    for name, (vals, lags, valid) in cases.items():
+        v = torch.from_numpy(np.ascontiguousarray(valid)).to(dev)
+        out[name] = (*tracker._dp_costs(
+            torch.tensor(vals, dtype=torch.float32, device=dev),
+            torch.tensor(lags, dtype=torch.float32, device=dev), v,
+            fs_a=tracker.analysis_rate(FS)[0]), v)
+    return out
+
+
+def viterbi_equal(args, what: str) -> int:
+    """The kernel's states against the plain version's on the same card
+    inputs: raises unless bitwise equal; returns the frames compared."""
+    from magphase_tpu_torch.kernels import viterbi as KV
+    got, ref = KV.viterbi(*args), KV.viterbi_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"Viterbi kernel: {what}: "
+                             f"{int((got != ref).sum())} of {got.numel()} "
+                             "states differ from the plain version")
+    return got.numel()
+
+
+def viterbi_work(local, ll_all, valid, states) -> tuple[int, int]:
+    """(bytes, float32 operations) of the DP: each input read once and the
+    states written once (the back-pointer workspace is the kernel's own);
+    per frame after the first and utterance, the 15 x 15 voiced jumps
+    (subtract, absolute value, multiply), 256 adds and 256 compares of the
+    argmin, and 16 adds, 16 compares and 16 subtracts of the costs."""
+    B, T, S = local.shape
+    n_ops = B * (T - 1) * (3 * (S - 1) ** 2 + 2 * S * S + 3 * S)
+    return nbytes(local, ll_all, valid, states), n_ops
+
+
+VITERBI_PROBE_STEPS = 12000
+
+
+def viterbi_chain_ns(dev):
+    """(ns, SM cycles) per forward step of the Viterbi kernel's chain alone
+    (one half-warp, the exchange through shared memory, no global memory),
+    by the probe kernel of csrc/viterbi.cu: what a frame of the kernel
+    cannot go below on this card."""
+    from magphase_tpu_torch.kernels import viterbi as KV
+    ms = cuda_ms(lambda: KV.chain_probe(VITERBI_PROBE_STEPS, dev), reps=5,
+                 warmup=1)
+    cycles = int(KV.chain_probe(VITERBI_PROBE_STEPS, dev)[1])
+    steps = VITERBI_PROBE_STEPS - 1
+    return ms * 1e6 / steps, cycles / steps
+
+
 def walk_work(f0, n_sigs, n_frames, marks, flags, n_marks, fs: int,
               frame_step: float):
     """What this run's walk needed: (window samples read, steps), from its
@@ -586,6 +686,7 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
     from magphase_tpu_torch.epochs import placement_device as pd
     from magphase_tpu_torch.epochs import tracker
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
     from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.utils.padding import bucket_frames
@@ -619,6 +720,7 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
     # the analysis requests: counts from 0 just before, read just after
     K.reset_launch_counts()
     K4.reset_launch_counts()
+    KV.reset_launch_counts()
     fallbacks = ab.capacity_fallbacks
     audio = {}
     for n in ANALYSIS_SIZES:
@@ -644,10 +746,11 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
             f"{dt * 1000:.1f} ms wall, {audio[n] / dt:.1f} audio-s/s, peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (first "
             "call)")
-    counts = {**K.launch_counts(), **K4.launch_counts()}
+    counts = {**K.launch_counts(), **K4.launch_counts(),
+              **KV.launch_counts()}
     log(f"[analysis] launches during the analysis path: {counts}; capacity "
         f"fallbacks {ab.capacity_fallbacks - fallbacks}")
-    for name in ("frames", "walk"):
+    for name in ("frames", "walk", "viterbi"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "analysis path")
@@ -670,8 +773,9 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
             f"{max(walls) * 1000:.1f}), {audio[n] / med:.1f} audio-s/s at the "
             "median (features on the host)")
 
-    # the two phases of one 32-utterance group, and the Viterbi loop inside
-    # phase 1, timed by CUDA events on the stream
+    # the two phases of one 32-utterance group, and the Viterbi kernel
+    # inside phase 1 beside its plain loop, timed by CUDA events on the
+    # stream
     alpha = 0.77
     ckw = dict(mag_dim=MAG_DIM, phase_dim=PHASE_DIM, alpha=alpha,
                alpha_phase=alpha,
@@ -687,12 +791,15 @@ def run_analysis_path(dev, a_sigs, a_marks, a_vois, group, Tmax, m_max,
     xa, _ = tracker._preprocess(t_sig, fs=FS)
     nccf, valid = tracker._nccf(xa, t_nfrm, n_frames_max=Tmax, fs_a=fs_a)
     vals, lags = tracker._candidates(nccf)
-    vit = cuda_ms(lambda: tracker._viterbi(vals, lags, valid, fs_a=fs_a),
-                  reps=3, warmup=1)
+    local, ll_all = tracker._dp_costs(vals, lags, valid, fs_a=fs_a)
+    vit = kernel_timings(lambda: KV.viterbi(local, ll_all, valid))
+    vit_plain = cuda_ms(lambda: KV.viterbi_plain(local, ll_all, valid),
+                        reps=2, warmup=1)
     log(f"[analysis] one group of {len(a_sigs)} utts on the stream: phase 1 "
-        f"(track + K4) {p1:.3f} ms, of which the Viterbi loop {vit:.3f} ms "
-        f"({vit / p1:.3f}); phase 2 (K1 + rfft + mel compression, F={F}) "
-        f"{p2:.3f} ms")
+        f"(track + K4) {p1:.3f} ms, of which the Viterbi kernel "
+        f"{fmt_times(vit)} ({vit['ms'] / p1:.4f} of phase 1 cold), its "
+        f"plain loop {vit_plain:.3f} ms; phase 2 (K1 + rfft + mel "
+        f"compression, F={F}) {p2:.3f} ms")
 
     # the card against the CPU on the 8-utterance request, float32 output
     req = a_sigs[:8]
@@ -928,6 +1035,7 @@ def run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois, group, Tmax,
     from magphase_tpu_torch.epochs import placement_device as pd
     from magphase_tpu_torch.kernels import dft as K5
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
     from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.parallel import copy_synthesis as cs
@@ -936,6 +1044,7 @@ def run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois, group, Tmax,
 
     K.reset_launch_counts()
     K4.reset_launch_counts()
+    KV.reset_launch_counts()
     K5.reset_launch_counts()
     audio, first = {}, {}
     for n in COPY_SIZES:
@@ -953,9 +1062,9 @@ def run_copy_synthesis_path(dev, a_sigs, sigs, marks, vois, group, Tmax,
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (first "
             f"call); worst p99 |out - in| {worst:.3g} (< 2^-15)")
     counts = {**K.launch_counts(), **K4.launch_counts(),
-              **K5.launch_counts()}
+              **KV.launch_counts(), **K5.launch_counts()}
     log(f"[copy] launches during the copy-synthesis path: {counts}")
-    for name in ("frames", "ola", "walk"):
+    for name in ("frames", "ola", "walk", "viterbi"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "copy-synthesis path")
@@ -1278,6 +1387,7 @@ def run_facade_path(dev, seed: int) -> dict:
     from magphase_tpu_torch.epochs import tracker
     from magphase_tpu_torch.io import wav as wav_io
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
     from magphase_tpu_torch.models import MagPhaseVocoder
     from magphase_tpu_torch.parallel import batch
@@ -1328,13 +1438,15 @@ def run_facade_path(dev, seed: int) -> dict:
 
         K.reset_launch_counts()
         K4.reset_launch_counts()
+        KV.reset_launch_counts()
         with recording((K, "frames"), (K, "ola"), (K4, "walk"),
                        (tracker, "place_epochs")) as rec_g:
             feats, outs, (f_c, w_c), (f_fb, w_fb), batch_c, cold = \
                 facade_runs(dev, np.float16)
-        counts = {**K.launch_counts(), **K4.launch_counts()}
+        counts = {**K.launch_counts(), **K4.launch_counts(),
+                  **KV.launch_counts()}
         log(f"[facade] launches during the facade path: {counts}")
-        for name in ("frames", "ola", "walk"):
+        for name in ("frames", "ola", "walk", "viterbi"):
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      "facade path")
@@ -1553,6 +1665,7 @@ def run_cli_path(dev, seed: int) -> tuple:
     from magphase_tpu_torch.io import native, read_binfile, read_wav
     from magphase_tpu_torch.io import wav as wav_io
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
     from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.parallel import batch
@@ -1639,6 +1752,7 @@ def run_cli_path(dev, seed: int) -> tuple:
 
         K.reset_launch_counts()
         K4.reset_launch_counts()
+        KV.reset_launch_counts()
         fallbacks0 = ab.capacity_fallbacks
         extract("feats", "extract --batch-size 32 (one unreadable wav)")
         with open(d("crash_feats.scp")) as f:
@@ -1715,9 +1829,10 @@ def run_cli_path(dev, seed: int) -> tuple:
         _same_wavs(wav16, _wav_tree(d("wav_fb"), toks),
                    "generate through the fallback runner")
 
-        counts = {**K.launch_counts(), **K4.launch_counts()}
+        counts = {**K.launch_counts(), **K4.launch_counts(),
+                  **KV.launch_counts()}
         log(f"[cli] launches during the CLI path: {counts}")
-        for name in ("frames", "ola", "walk"):
+        for name in ("frames", "ola", "walk", "viterbi"):
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the "
                                      "CLI path")
@@ -2094,6 +2209,7 @@ def run_variants_path(dev, seed: int, feats, keys_all) -> tuple:
     from magphase_tpu_torch.epochs import extract_epochs
     from magphase_tpu_torch.io import wav as wav_io
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
     from magphase_tpu_torch.parallel import batch
     from magphase_tpu_torch.utils.keys import prng_key, split
@@ -2112,6 +2228,7 @@ def run_variants_path(dev, seed: int, feats, keys_all) -> tuple:
 
         K.reset_launch_counts()
         K4.reset_launch_counts()
+        KV.reset_launch_counts()
         cold, results = {}, []
         with recording((K, "frames"), (K, "ola"), (K4, "walk")) as rec:
             for i, entries in enumerate(paths):
@@ -2125,7 +2242,8 @@ def run_variants_path(dev, seed: int, feats, keys_all) -> tuple:
                         cold[name] = (time.perf_counter() - t0) * 1000
                     _check_variant_outputs(name, r[name], len(sigs[i]))
                 results.append(r)
-        counts_entries = {**K.launch_counts(), **K4.launch_counts()}
+        counts_entries = {**K.launch_counts(), **K4.launch_counts(),
+                          **KV.launch_counts()}
         log(f"[variants] launches on the variants entries of {VARIANT_UTTS} "
             f"wavs: {counts_entries}")
         for name in ("frames", "ola"):
@@ -2316,8 +2434,12 @@ def run_variants_path(dev, seed: int, feats, keys_all) -> tuple:
         if match < MIN_WHITEN_MARK_MATCH * total:
             raise AssertionError(f"whiten={mode}: card and CPU marks differ")
 
-    counts = {**K.launch_counts(), **K4.launch_counts()}
+    counts = {**K.launch_counts(), **K4.launch_counts(),
+              **KV.launch_counts()}
     log(f"[variants] launches during the variants path: {counts}")
+    if counts["viterbi"] <= 0:
+        raise AssertionError("kernel viterbi was not launched by "
+                             "extract_epochs on the variants path")
     return counts, kchecks
 
 
@@ -2378,6 +2500,7 @@ def run_mesh_path(dev, seed: int, feats, keys_all, a_sigs, a_marks,
     MESH_PEAK_TOL of none's.  Returns the launch counts (the checked mesh
     runs') and the kernel checks."""
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
     from magphase_tpu_torch.parallel import analysis_batch as ab
     from magphase_tpu_torch.parallel import batch
@@ -2458,6 +2581,7 @@ def run_mesh_path(dev, seed: int, feats, keys_all, a_sigs, a_marks,
 
     K.reset_launch_counts()
     K4.reset_launch_counts()
+    KV.reset_launch_counts()
     checks = {}
     for mesh, label, rec_it in ((visible, f"data_mesh() x{visible.size}",
                                  False),
@@ -2480,7 +2604,8 @@ def run_mesh_path(dev, seed: int, feats, keys_all, a_sigs, a_marks,
         if name in none3:
             log(f"[mesh] 3 shards, 2 utts {name}: "
                 f"{compare(name, fn(), none3[name], '3 shards, 2 utts')}")
-    counts_mesh = {**K.launch_counts(), **K4.launch_counts()}
+    counts_mesh = {**K.launch_counts(), **K4.launch_counts(),
+                   **KV.launch_counts()}
 
     # wall and peak memory of each request, unrecorded, in turns; the peaks
     # of the highest run of each side
@@ -2518,6 +2643,9 @@ def run_mesh_path(dev, seed: int, feats, keys_all, a_sigs, a_marks,
         if counts[name] <= 0 or checks.get(name, {}).get("calls", 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "mesh path")
+    if counts["viterbi"] <= 0:
+        raise AssertionError("kernel viterbi was not launched on the mesh "
+                             "path")
     return counts, checks
 
 
@@ -2526,11 +2654,13 @@ import json, sys
 sys.path.insert(0, sys.argv[1])
 from magphase_tpu_torch import cli
 from magphase_tpu_torch.kernels import framing as K
+from magphase_tpu_torch.kernels import viterbi as KV
 from magphase_tpu_torch.kernels import walk as K4
 from magphase_tpu_torch.parallel import mesh
 rcs = [cli.main(json.loads(a)) for a in sys.argv[3:]]
 json.dump(dict(rcs=rcs, rank=mesh.rank(), size=mesh.world_size(),
-               counts={**K.launch_counts(), **K4.launch_counts()}),
+               counts={**K.launch_counts(), **K4.launch_counts(),
+                       **KV.launch_counts()}),
           open(sys.argv[2], "w"))
 """
 
@@ -2635,7 +2765,7 @@ def run_multiproc_path(dev, seed: int) -> dict:
             f"built), two processes {t_two:.2f} s (each from its start); "
             f"manifests {[len(s) for s in shards]} a disjoint cover, merged "
             f"feature and wav trees byte-identical; worker launches {counts}")
-        for name in ("frames", "ola", "walk"):
+        for name in ("frames", "ola", "walk", "viterbi"):
             if counts[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by the "
                                      "multi-process workers")
@@ -2768,6 +2898,7 @@ def main() -> None:
     from magphase_tpu_torch.kernels import _build
     from magphase_tpu_torch.kernels import dft as K5
     from magphase_tpu_torch.kernels import framing as K
+    from magphase_tpu_torch.kernels import viterbi as KV
     from magphase_tpu_torch.kernels import walk as K4
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2784,7 +2915,7 @@ def main() -> None:
 
     # phase 2 — build, one nvcc per source, started together
     t0 = time.perf_counter()
-    infos = _build.build(K.SOURCE, K4.SOURCE, K5.SOURCE)
+    infos = _build.build(K.SOURCE, K4.SOURCE, K5.SOURCE, KV.SOURCE)
     for name, info in infos.items():
         log(f"[build] {name}: {info['path']} in {info['seconds']:.2f} s "
             f"(cached={info['cached']}); ptxas: "
@@ -2991,6 +3122,57 @@ def main() -> None:
         f"{K4.kernel_occupancy(FS, Tmax_a)}; chain probe SASS: "
         f"{probe_sass(infos['walk']['path'], _build.find_nvcc())}")
 
+    # the Viterbi kernel against its plain version, bitwise: on the DP
+    # inputs of the 32 analysis signals, of one budget group of the
+    # analysis cell (24 utterances of 3.5 s, the pool's longest bucket; its
+    # row's shapes and times), of inputs full of ties and of one utterance
+    # of 60 s
+    rng_v = np.random.default_rng(args.seed + 13)
+    vit_group = viterbi_inputs(a_sigs, dev)
+    vit_cell = viterbi_inputs(make_witness_signals(
+        rng_v, VITERBI_CELL_GROUP, max(BENCH_POOL_SECONDS))[0], dev)
+    vit_long = viterbi_inputs(make_witness_signals(
+        rng_v, 1, VITERBI_LONG_SECONDS)[0], dev)
+    compared = {
+        f"{len(a_sigs)} x {UTT_SECONDS} s": viterbi_equal(vit_group, "group"),
+        f"{VITERBI_CELL_GROUP} x {max(BENCH_POOL_SECONDS)} s": viterbi_equal(
+            vit_cell, "a budget group of the analysis cell"),
+        f"1 x {VITERBI_LONG_SECONDS} s (T={vit_long[0].shape[1]})":
+            viterbi_equal(vit_long, "60 s utterance")}
+    B_c, T_c, _ = vit_cell[0].shape
+    for name, args_t in viterbi_tie_inputs(rng_v, dev, B_c, T_c).items():
+        compared[name] = viterbi_equal(args_t, name)
+    states = KV.viterbi(*vit_cell)
+    vit_bytes, vit_ops = viterbi_work(*vit_cell, states)
+    bnd = bound(vit_bytes, vit_ops)
+    chain_ns, chain_cycles = viterbi_chain_ns(dev)
+    chain_ms = (T_c - 1) * chain_ns * 1e-6
+    results["viterbi"] = dict(
+        max_abs_err=0.0,
+        **kernel_timings(lambda: KV.viterbi(*vit_cell)),
+        plain_ms=cuda_ms(lambda: KV.viterbi_plain(*vit_cell), reps=2,
+                         warmup=1),
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+        chain_bound_ms=chain_ms, chain_ns_per_step=chain_ns,
+        group=dict(B=len(a_sigs), T=vit_group[0].shape[1], **kernel_timings(
+            lambda: KV.viterbi(*vit_group))))
+    r = results["viterbi"]
+    t_long = kernel_ms(lambda: KV.viterbi(*vit_long))["median"]
+    log(f"[kernels] Viterbi states bitwise equal to plain on "
+        f"{'; '.join(f'{k} ({n} frames)' for k, n in compared.items())}")
+    log(f"[kernels] Viterbi B={B_c} T={T_c}: kernel {fmt_times(r)}; plain "
+        f"{r['plain_ms']:.4f} ms ({r['plain_ms'] / r['ms']:.0f}x); bound "
+        f"{r['bound_ms']:.6f} ms ({r['bound_by']}; {vit_bytes} bytes, "
+        f"{vit_ops} operations), {r['bound_ms'] / r['ms']:.2%} of it; chain "
+        f"probe {chain_ns:.2f} ns, {chain_cycles:.2f} SM cycles a frame "
+        f"({VITERBI_PROBE_STEPS} steps), chain bound {chain_ms:.4f} ms "
+        f"({T_c - 1} frames), {chain_ms / r['ms']:.1%} of it; "
+        f"{r['ms'] * 1e6 / (T_c - 1):.1f} ns a frame; B={len(a_sigs)} "
+        f"T={vit_group[0].shape[1]}: {fmt_times(r['group'])}; 60 s "
+        f"utterance (B={vit_long[0].shape[0]}, T={vit_long[0].shape[1]}): "
+        f"{t_long:.4f} ms cold")
+    del vit_group, vit_cell, vit_long, states
+
     # K5 against its plain version: the forward on the K1 frames of this
     # analysis group at its realised frame bucket, the inverse at the
     # 128-utterance serving geometry
@@ -3154,6 +3336,7 @@ def main() -> None:
         profile_copy_synthesis(a_sigs, dev)
 
     launches = {**counts, "walk": counts_a["walk"],
+                "viterbi": counts_a["viterbi"],
                 "rfft_fused": counts_k5["rfft_fused"],
                 "irfft_fused": counts_k5["irfft_fused"]}
     for counts_p in (counts_f, counts_c, counts_v, counts_m, counts_mp,
@@ -3166,7 +3349,8 @@ def main() -> None:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
                     **{k: r[k] for k in (*TIMING_KEYS, "bytes_bound_ms",
-                                         "chain_ns_per_step",
+                                         "chain_bound_ms",
+                                         "chain_ns_per_step", "group",
                                          "padded_bound_ms", "copy_synthesis",
                                          "facade", "cli", "variants",
                                          "mesh", "example")

@@ -11,7 +11,9 @@ utterance axis:
      lags of 50..400 Hz, all frames at once through rfft/irfft;
   3. ``_candidates`` - local maxima, the N_CAND best, parabolic lag refine;
   4. ``_viterbi``    - the (N_CAND+1)-state DP with octave-jump and voicing
-     costs, a Python loop over frames with the batch written out.
+     costs: its local costs and log2 lags in torch, then the DP in
+     kernels/viterbi.py (one CUDA launch on the card, a Python loop over
+     frames on the CPU).
 
 Epoch placement follows in epochs/placement_device.py (kernel K4) or, for
 one utterance on the host, ``place_epochs``.  The constants and FIR taps
@@ -25,6 +27,9 @@ import os
 import numpy as np
 import torch
 
+from ..kernels import viterbi as KV
+# the JAX tracker's constants that the kernel modules hold
+from ..kernels.viterbi import TRANS_W, VUV_COST
 from ..kernels.walk import SNAP_HALF_ONSET, SNAP_HALF_RUN, SNAP_ONSET_MARKS
 from ..utils.padding import bucket, bucket_signal
 
@@ -36,10 +41,9 @@ FS_ANALYSIS = 16000
 CORR_WIN_S = 0.0075
 N_CAND = 15
 
-# DP costs
+# DP costs (the transition costs VUV_COST and TRANS_W are the kernel's,
+# kernels/viterbi.py)
 UV_LOCAL = 0.35        # local cost of the unvoiced state
-VUV_COST = 0.20        # voicing transition cost
-TRANS_W = 0.60         # cost per |log2| octave of f0 movement
 LAG_BIAS = 0.05        # slight preference for shorter lags (anti-octave)
 
 _OS_BLOCK = 16384      # overlap-save FFT block
@@ -225,16 +229,12 @@ def _candidates(nccf: torch.Tensor):
     return vals, lags.to(torch.float32) + frac
 
 
-def _viterbi(vals: torch.Tensor, lags: torch.Tensor, valid: torch.Tensor, *,
-             fs_a: float = FS_ANALYSIS) -> torch.Tensor:
-    """(K+1)-state DP over frames, state K = unvoiced: vals/lags (B, T, K),
-    valid (B, T).  Returns the best state path (B, T) int64.
-
-    A Python loop over all T frames, padding frames included: they are
-    forced unvoiced at no cost and transitions into them are free, so the
-    voicing of the real frames does not depend on the padding."""
-    B, T, K = vals.shape
-    dev = vals.device
+def _dp_costs(vals: torch.Tensor, lags: torch.Tensor, valid: torch.Tensor,
+              *, fs_a: float = FS_ANALYSIS):
+    """The DP's inputs from the candidates vals/lags (B, T, K): the local
+    costs (B, T, K+1), state K unvoiced, and the log2 lags (B, T, K+1),
+    the unvoiced state's 0.  Padding frames (valid false) are forced
+    unvoiced at no cost."""
     log_lag = torch.log2(torch.clamp(lags, min=1.0))
     max_lag = torch.full_like(lags, fs_a / F0_MIN)
     local_v = 1.0 - vals + LAG_BIAS * (lags / max_lag)
@@ -245,28 +245,20 @@ def _viterbi(vals: torch.Tensor, lags: torch.Tensor, valid: torch.Tensor, *,
                           torch.zeros_like(local_v[..., :1])], dim=-1)
     local = torch.where(valid[..., None], local, pad_cost)
     ll_all = torch.cat([log_lag, torch.zeros_like(log_lag[..., :1])], dim=-1)
+    return local, ll_all
 
-    vv = torch.full((K + 1, K + 1), VUV_COST, dtype=vals.dtype, device=dev)
-    vv[K, K] = 0.0
-    is_vv = torch.zeros((K + 1, K + 1), dtype=torch.bool, device=dev)
-    is_vv[:K, :K] = True
-    delta = local[:, 0]
-    back = []
-    for t in range(1, T):
-        jump = torch.abs(ll_all[:, t - 1, :, None] - ll_all[:, t, None, :])
-        trans = torch.where(is_vv, TRANS_W * jump, vv)
-        trans = torch.where(valid[:, t, None, None], trans, 0.0)
-        tot = delta[:, :, None] + trans                    # (B, i, j)
-        best, best_i = torch.min(tot, dim=1)
-        delta = best + local[:, t]
-        delta = delta - torch.min(delta, dim=1, keepdim=True).values
-        back.append(best_i)
-    state = torch.argmin(delta, dim=1)
-    states = [state]
-    for best_i in reversed(back):
-        state = torch.gather(best_i, 1, state[:, None])[:, 0]
-        states.append(state)
-    return torch.stack(states[::-1], dim=1)
+
+def _viterbi(vals: torch.Tensor, lags: torch.Tensor, valid: torch.Tensor, *,
+             fs_a: float = FS_ANALYSIS) -> torch.Tensor:
+    """(K+1)-state DP over frames, state K = unvoiced: vals/lags (B, T, K),
+    valid (B, T).  Returns the best state path (B, T) int64.
+
+    Over all T frames, padding frames included: they are forced unvoiced
+    at no cost and transitions into them are free, so the voicing of the
+    real frames does not depend on the padding.  The costs are formed in
+    torch (``_dp_costs``), the DP is ``kernels.viterbi.viterbi``."""
+    local, ll_all = _dp_costs(vals, lags, valid, fs_a=fs_a)
+    return KV.viterbi(local, ll_all, valid)
 
 
 def track_batch(sigs: torch.Tensor, n_frames: torch.Tensor, *, fs: int,

@@ -296,10 +296,10 @@ def test_import_builds_no_kernel():
         "import magphase_tpu_torch.vocoder.variants\n"
         "import magphase_tpu_torch.cli, magphase_tpu_torch.serve\n"
         "from magphase_tpu_torch.io import native\n"
-        "from magphase_tpu_torch.kernels import dft, framing, walk\n"
+        "from magphase_tpu_torch.kernels import dft, framing, viterbi, walk\n"
         "assert 'jax' not in sys.modules\n"
         "assert native._load.cache_info().currsize == 0\n"
-        "for m in (dft, framing, walk):\n"
+        "for m in (dft, framing, viterbi, walk):\n"
         "    assert m._library.cache_info().currsize == 0, m.__name__\n")
 
     from magphase_tpu_torch.io import native
